@@ -259,3 +259,7 @@ def keyframe_centers(m: MapState) -> torch.Tensor:
     t = m.kf_pose[:, :3, 3]
     return -torch.einsum("kji,kj->ki", R, t)
 
+
+def as_numpy_summary(m: MapState) -> dict:
+    """Host-side readout for logging (keyframe and landmark counts)."""
+    return {"n_kf": int(m.kf_valid.sum()), "n_lm": int(m.lm_valid.sum())}

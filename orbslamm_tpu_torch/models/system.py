@@ -1,19 +1,21 @@
-"""Host-driven monocular session (port of the mono, loop-closing-off part of
+"""Host-driven monocular session (port of the mono, single-map part of
 orbslamm_tpu/models/system.py).
 
-  * MapContext   — one map: its pools, id and keyframe count
+  * MapContext   — one map: its pools, its keyframe BoW database, loop
+                   closing (detection, Sim3 verification, essential-graph
+                   correction) and the overlapped global-BA schedule
   * RobotTracker — one robot's tracking state machine
                    {NO_IMAGES_YET, NOT_INITIALIZED, OK, LOST}: two-view
                    initialization, then the fused per-frame step or the
                    pipelined chunk path; a young map that loses tracking is
-                   reset and re-initialized
+                   reset, an older one relocalizes against the BoW database;
+                   localization mode tracks without inserting keyframes
   * MonocularSession — the single-robot facade
 
-Paths this slice does not have raise ``NotImplementedError`` naming the
-ROADMAP step that brings them: a vocabulary (``vocabulary_path``, or loop
-closing still on once a map holds 4 keyframes — switch it off with
-``sess.enable_loop_closing = False``), relocalization after a loss,
-localization mode, stereo and RGB-D.
+Paths this port does not have yet raise ``NotImplementedError`` naming the
+ROADMAP step that brings them: on-device vocabulary training (loop closing
+on without a ``vocabulary_path``, once a map holds 4 keyframes), stereo and
+RGB-D, and the multi-map entry points.
 """
 
 from __future__ import annotations
@@ -30,17 +32,19 @@ import torch
 from orbslamm_tpu.utils.config import SlamConfig
 from orbslamm_tpu_torch.models import fused
 from orbslamm_tpu_torch.models import local_mapping as lm_stage
+from orbslamm_tpu_torch.models import loop_closing as lc_stage
 from orbslamm_tpu_torch.models import map_state as ms
 from orbslamm_tpu_torch.models import tracking as trk
+from orbslamm_tpu_torch.ops import bow
+from orbslamm_tpu_torch.ops import geometry as geo
 from orbslamm_tpu_torch.ops import orb as orb_ops
 from orbslamm_tpu_torch.ops import ransac
 from orbslamm_tpu_torch.ops.matching import _top_k
 from orbslamm_tpu_torch.ops.orb import Features
+from orbslamm_tpu_torch.utils.trace import stage
 
-_BOW = "BoW place recognition (ROADMAP queue 1, step 9)"
-_LOOP = "loop closing and relocalization (ROADMAP queue 1, step 11)"
 _STEREO = "stereo and RGB-D sessions (ROADMAP queue 1, step 13)"
-_LOCALIZATION = "localization mode (ROADMAP queue 1, step 11)"
+_MULTIMAP = "multi-map merging (ROADMAP queue 1, step 12)"
 
 
 def _not_ported(what: str):
@@ -163,11 +167,17 @@ def resolve_frame_poses(frames) -> list[np.ndarray]:
     return out
 
 
+def _np(t) -> np.ndarray:
+    return t.cpu().numpy() if torch.is_tensor(t) else np.asarray(t)
+
+
 class MapContext:
-    """One map (its pools and id); no keyframe database in this slice."""
+    """One map: its pools, keyframe BoW database, loop closing and the
+    overlapped global-BA schedule (Map + KeyFrameDatabase + LoopClosing)."""
 
     _next_id = 0
     _registry: weakref.WeakValueDictionary | None = None
+    _voc_file_cache: dict = {}
 
     @classmethod
     def registry(cls) -> weakref.WeakValueDictionary:
@@ -175,9 +185,7 @@ class MapContext:
             cls._registry = weakref.WeakValueDictionary()
         return cls._registry
 
-    def __init__(self, cfg: SlamConfig, *, device):
-        if cfg.vocabulary_path:
-            raise _not_ported(_BOW)
+    def __init__(self, cfg: SlamConfig, voc: bow.Vocabulary | None = None, *, device):
         self.cfg = cfg
         self.device = torch.device(device)
         self.map = ms.empty_map(cfg, device=self.device)
@@ -185,7 +193,38 @@ class MapContext:
         self.map_id = MapContext._next_id
         MapContext._next_id += 1
         MapContext.registry()[self.map_id] = self
+        self.voc = voc
+        self.kf_bow = None
         self.loop_closing_enabled = True
+        if voc is None and cfg.vocabulary_path:
+            # a file vocabulary is there from frame 0 (the reference's
+            # mandatory ORBvoc.txt, System.cc:167-168)
+            self.ensure_vocabulary()
+        elif voc is not None:
+            self._alloc_bow()
+        self.last_loop_kf = -(10 ** 9)
+        self.loops_closed: list = []
+        # covisibility-consistency chains (LoopClosing.cc:158-217): each
+        # entry is (group member set, consecutive-detection count)
+        self._consist: list[tuple[set, int]] = []
+        # failed Sim3 verifications back off (candidate -> slot of the last
+        # failed attempt)
+        self._loop_verify_cooldown: dict[int, int] = {}
+        # overlapped global BA: a loop closure schedules LM slices, one per
+        # chunk boundary, over the current map; each slice's cost is read
+        # one slice late, and the schedule stops when it stalls
+        self.gba_remaining = 0
+        self.gba_max_slices = 8
+        self.gba_slice_iters = 2
+        self.gba_cg_iters = 16
+        self._gba_last_cost = None
+        self._gba_cost_pending = None
+        self.gba_slices_run = 0
+
+    def _alloc_bow(self):
+        K_cap = self.map.kf_pose.shape[0]
+        self.kf_bow = torch.zeros((K_cap, self.voc.n_words), dtype=torch.float32,
+                                  device=self.device)
 
     def renew_id(self):
         """A young-map reset discards the map's content: records of the old
@@ -194,6 +233,186 @@ class MapContext:
         self.map_id = MapContext._next_id
         MapContext._next_id += 1
         MapContext.registry()[self.map_id] = self
+
+    # -- BoW database -----------------------------------------------------
+    @staticmethod
+    def load_vocabulary_file(cfg: SlamConfig, device) -> bow.Vocabulary:
+        """Load (and cache per device) the configured vocabulary file: this
+        framework's .npz or DBoW2 ORBvoc.txt text."""
+        path = str(cfg.vocabulary_path)
+        key = (path, str(torch.device(device)))
+        voc = MapContext._voc_file_cache.get(key)
+        if voc is None:
+            with stage("bow.load"):
+                if path.endswith(".npz"):
+                    voc = bow.load_vocabulary_npz(path, device=device)
+                else:
+                    voc = bow.load_orb_vocabulary_text(path, max_depth=cfg.loop.vocab_depth + 1,
+                                                       device=device)
+            MapContext._voc_file_cache[key] = voc
+        return voc
+
+    def ensure_vocabulary(self) -> bool:
+        """Provide the vocabulary: load the configured file. Training one
+        from the map's descriptors (no ``vocabulary_path``) is not ported."""
+        if self.voc is not None:
+            return True
+        if not self.cfg.vocabulary_path:
+            if self.n_kf < 4:
+                return False
+            raise NotImplementedError(
+                f"{bow.TRAINING} is not ported to orbslamm_tpu_torch yet; set "
+                "SlamConfig.vocabulary_path or switch loop closing off")
+        self.voc = MapContext.load_vocabulary_file(self.cfg, self.device)
+        self._alloc_bow()
+        kv = self.map.kf_valid.cpu().numpy()
+        self.update_bow_rows([int(s) for s in np.nonzero(kv)[0]])
+        return True
+
+    def update_bow_row(self, slot: int):
+        self.update_bow_rows([slot])
+
+    def update_bow_rows(self, slots):
+        """Recompute the database rows of ``slots`` (KeyFrameDatabase::add)."""
+        if self.voc is None or len(slots) == 0:
+            return
+        with stage("bow.update"):
+            self.kf_bow = bow.update_bow_rows(self.voc, self.map.kf_desc, self.map.kf_feat_valid,
+                                              self.kf_bow, slots)
+
+    # -- same-map loop closing --------------------------------------------
+    def loop_scan(self, slots) -> dict:
+        """Candidate scores for a batch of new keyframes with one fetch.
+        Returns {slot: (scores with -1 where inadmissible [K], min_score)}."""
+        cfg = self.cfg
+        if self.voc is None or not slots or self.n_kf < cfg.loop.min_kfs_for_merge:
+            return {}
+        with stage("loop.detect"):
+            scores, allowed, min_score = lc_stage.batched_loop_candidates(
+                cfg, self.map, self.kf_bow, slots, min_gap=cfg.loop.kfs_between_loops)
+            sc = _np(torch.where(allowed, scores, torch.full_like(scores, -1.0)))
+            msc = _np(min_score)
+        return {s: (sc[i], float(msc[i])) for i, s in enumerate(slots)}
+
+    def try_close_loop(self, slot: int, generator: torch.Generator, precomputed=None) -> bool:
+        cfg = self.cfg
+        if (not self.loop_closing_enabled or self.voc is None
+                or self.n_kf < cfg.loop.min_kfs_for_merge
+                or slot - self.last_loop_kf < cfg.loop.kfs_between_loops):
+            return False
+        with stage("loop.detect"):
+            if precomputed is None:
+                scores, allowed, min_score = lc_stage.loop_candidates(
+                    cfg, self.map, self.kf_bow, slot, min_gap=cfg.loop.kfs_between_loops)
+                sc = _np(torch.where(allowed, scores, torch.full_like(scores, -1.0)))
+                min_score = float(min_score)
+            else:
+                sc, min_score = precomputed
+            # minScore normalization (LoopClosing.cc:131)
+            floor = max(min_score, 0.015)
+            if float(sc.max()) < floor:
+                self._consist = []  # no candidates: chains reset (LoopClosing.cc:152)
+                return False
+            # covisibility-group accumulation + top-k representatives
+            # (KeyFrameDatabase.cc:129-200)
+            acc_d, nb_d = lc_stage.candidate_groups(
+                cfg, self.map,
+                torch.as_tensor(np.where(sc >= floor, sc, -1.0).astype(np.float32),
+                                device=self.device))
+            acc, nb = _np(acc_d), _np(nb_d)
+            cands: list[int] = []
+            masked = acc.copy()
+            for _ in range(cfg.loop.top_k_candidates):
+                c = int(masked.argmax())
+                if masked[c] <= 0:
+                    break
+                cands.append(int(np.argmax(np.where(nb[c], sc, -1.0))))
+                masked[nb[c]] = -1.0
+            # consistency over consecutive keyframes (LoopClosing.cc:158-217)
+            prev = self._consist
+            new_groups: list[tuple[set, int]] = []
+            enough: list[int] = []
+            for c in cands:
+                group = set(np.nonzero(nb[c])[0].tolist())
+                count = 0
+                for pg, pc in prev:
+                    if group & pg:
+                        count = max(count, pc + 1)
+                new_groups.append((group, count))
+                if count >= cfg.loop.covisibility_consistency:
+                    enough.append(c)
+            self._consist = new_groups
+        if not enough:
+            return False
+        return self.verify_and_correct_loop(slot, enough, generator)
+
+    def verify_and_correct_loop(self, slot: int, candidates, generator: torch.Generator) -> bool:
+        """The part of loop closing after detection: Sim3 verification of
+        ``slot`` against each candidate in turn (failed ones back off for 8
+        keyframes), then the essential-graph correction of the first that
+        verifies, one global-BA slice and the schedule of the overlapped
+        rest (LoopClosing::ComputeSim3 + CorrectLoop)."""
+        cfg = self.cfg
+        ls, cand = None, -1
+        with stage("loop.verify"):
+            for c in candidates:
+                if slot - self._loop_verify_cooldown.get(c, -(10 ** 9)) < 8:
+                    continue
+                ls_c = lc_stage.compute_loop_sim3(cfg, self.map, slot, c, generator)
+                if bool(ls_c.success):
+                    ls, cand = ls_c, c
+                    break
+                self._loop_verify_cooldown[c] = slot
+        if ls is None:
+            return False
+        with stage("loop.correct"):
+            self.map = lc_stage.correct_loop(cfg, self.map, slot, cand, ls.S_ba)
+        # one immediate slice stabilizes the seam; the rest of the global
+        # BA runs overlapped, one slice per chunk boundary
+        with stage("gba.slice"):
+            self.map, cost = lc_stage.global_bundle_adjust(
+                cfg, self.map, iters=self.gba_slice_iters, cg_iters=self.gba_cg_iters)
+            self.gba_slices_run += 1
+        self.schedule_gba(first_cost=float(cost))
+        self.last_loop_kf = slot
+        self._consist = []
+        self.loops_closed.append((slot, cand, int(ls.n_inliers)))
+        return True
+
+    def schedule_gba(self, first_cost: float | None = None):
+        """(Re-)schedule the overlapped global BA; re-scheduling while slices
+        remain is the reference's abort-and-restart of its GBA thread."""
+        self.gba_remaining = self.gba_max_slices
+        self._gba_last_cost = first_cost
+        self._gba_cost_pending = None
+
+    def gba_resolve_cost(self, cost: float) -> None:
+        """Stop the schedule once a slice's relative improvement stalls."""
+        if self._gba_last_cost is not None and cost >= self._gba_last_cost * (1.0 - 1e-3):
+            self.gba_remaining = 0
+        self._gba_last_cost = cost
+
+    def gba_slice(self) -> bool:
+        """Run one overlapped global-BA slice if any is scheduled; the
+        previous slice's cost is read first (one slice late). Returns True
+        when a slice ran."""
+        if self._gba_cost_pending is not None:
+            cost = float(self._gba_cost_pending)
+            self._gba_cost_pending = None
+            self.gba_resolve_cost(cost)
+        if self.gba_remaining <= 0:
+            return False
+        with stage("gba.slice"):
+            self.map, self._gba_cost_pending = lc_stage.global_bundle_adjust(
+                self.cfg, self.map, iters=self.gba_slice_iters, cg_iters=self.gba_cg_iters)
+        self.gba_remaining -= 1
+        self.gba_slices_run += 1
+        return True
+
+    def summary(self) -> dict:
+        s = ms.as_numpy_summary(self.map)
+        s["map_id"] = self.map_id
+        return s
 
 
 class RobotTracker:
@@ -225,10 +444,16 @@ class RobotTracker:
         self.generator.manual_seed(zlib.crc32(name.encode()))
         self._reset_tracking()
         self.frame_id = -1
+        # localization-only mode: track against the frozen map, never insert
+        # keyframes; on loss, relocalize (System::ActivateLocalizationMode)
+        self.localization_only = False
         self._frame_step = fused.make_frame_step(cfg, self.extract, self.K)
         self._ts = None  # device TrackState while the fused path is active
         self.chunk_size = 8
-        self._chunk_step = fused.make_chunk_step(cfg, self.extract, self.K)
+        # built on first use; rebuilt when the vocabulary appears (the
+        # with_bow step folds the BoW row + loop scan into the chunk)
+        self._chunk_step = None
+        self._chunk_bow = False
 
     def _reset_tracking(self):
         # generation counter: a host-side reset/switch makes chunks
@@ -255,14 +480,19 @@ class RobotTracker:
         self._reset_tracking()
         self._ts = None
 
+    def adopt_merged_map(self, *args, **kwargs):
+        raise _not_ported(_MULTIMAP)
+
     def _maybe_reset_young_map(self):
         """Early-loss reset (Tracking.cc:520-528): discard a young map that
         lost tracking right after initialization and re-initialize."""
-        if (self.state == TrackingState.LOST
+        if (self.state == TrackingState.LOST and not self.localization_only
                 and self.mapctx.n_kf < self.cfg.tracking.min_kfs_for_new_map):
             mc = self.mapctx
             mc.map = ms.empty_map(self.cfg, device=self.device)
             mc.n_kf = 0
+            if mc.kf_bow is not None:
+                mc.kf_bow = torch.zeros_like(mc.kf_bow)
             mc.renew_id()
             self.switch_map(mc)
 
@@ -318,11 +548,13 @@ class RobotTracker:
             last_kf_T=mc.map.kf_pose[max(mc.n_kf - 1, 0)],
         )
 
-    def _check_loop_closing_off(self):
-        """The JAX package first needs a vocabulary here (it trains one once
-        a map holds 4 keyframes and loop closing is on)."""
-        if self.mapctx.loop_closing_enabled and self.mapctx.n_kf >= 4:
-            raise _not_ported(_BOW + " and " + _LOOP)
+    def _vocabulary_gate(self):
+        """With loop closing on, a map of 4 keyframes needs its vocabulary
+        (loaded at map creation when ``vocabulary_path`` is set)."""
+        mc = self.mapctx
+        if (mc.loop_closing_enabled and not self.localization_only
+                and mc.voc is None and mc.n_kf >= 4):
+            mc.ensure_vocabulary()
 
     # -- initialization ----------------------------------------------------
     def _try_initialize(self, feats: Features, timestamp: float):
@@ -375,6 +607,60 @@ class RobotTracker:
         self.state = TrackingState.OK
         self.frames_since_kf = 0
         self._last_ref = (1, np.eye(4))  # this frame IS keyframe 1
+        mc.update_bow_rows([0, 1])
+
+    # -- relocalization ----------------------------------------------------
+    def _try_relocalize(self, feats: Features) -> int:
+        """Relocalization with the keyframe database's group treatment
+        (KeyFrameDatabase::DetectRelocalizationCandidates): covisibility-
+        group accumulation with 0.75x-of-best retention, PnP verification
+        of each group's best keyframe, then projection refinement against
+        the local map before accepting (Tracking.cc:1404-1560)."""
+        self._sync_from_ts()
+        cfg = self.cfg
+        mc = self.mapctx
+        if mc.voc is None or mc.kf_bow is None:
+            return 0
+        with stage("reloc"):
+            v = bow.bow_vector(mc.voc, bow.assign_words(mc.voc, feats.desc, feats.valid))
+            scores = _np(lc_stage.relocalization_candidates(cfg, mc.map, mc.kf_bow, v))
+            if float(scores.max()) <= 0.01:
+                return 0
+            acc_d, nb_d = lc_stage.candidate_groups(
+                cfg, mc.map,
+                torch.as_tensor(np.where(scores > 0.01, scores, -1.0).astype(np.float32),
+                                device=self.device))
+            acc, nb = _np(acc_d), _np(nb_d)
+            masked = acc.copy()
+            for _ in range(cfg.loop.top_k_candidates):
+                rep = int(masked.argmax())
+                if masked[rep] <= 0:
+                    break
+                cand = int(np.argmax(np.where(nb[rep], scores, -1.0)))
+                masked[nb[rep]] = -1.0
+                ok, T, feat_lm, _n = lc_stage.relocalize_against_kf(
+                    cfg, mc.map, feats, self.K, cand, self.generator)
+                if not bool(ok):
+                    continue
+                # projection refinement (SearchByProjection + final
+                # PoseOptimization, Tracking.cc:1500-1553)
+                r2, mc.map = trk.track_local_map(cfg, mc.map, feats, T, self.K, feat_lm)
+                n2 = int(r2.n_inliers)
+                if n2 < cfg.tracking.min_inliers_local_map:
+                    continue
+                self.T_cw = r2.T_cw
+                self.last_T = r2.T_cw
+                self.velocity = torch.eye(4, dtype=torch.float32, device=self.device)
+                self.last_feats = feats
+                self.last_lm = r2.feat_lm
+                self.state = TrackingState.OK
+                self.frames_since_kf = 0
+                self.peak_inliers_since_kf = n2
+                self.prev_inliers = 0
+                ref = mc.n_kf - 1
+                self._last_ref = (ref, _np(self.T_cw @ geo.T_inv(mc.map.kf_pose[ref])))
+                return n2
+        return 0
 
     # -- tracking ----------------------------------------------------------
     def _track_fused(self, img, timestamp: float) -> int:
@@ -382,10 +668,11 @@ class RobotTracker:
         if self._ts is None:
             self._ts = self._make_ts()
         m, ts_next, summary = self._frame_step(mc.map, self._ts, img, self.frame_id,
-                                               timestamp)
+                                               timestamp,
+                                               allow_kf=not self.localization_only)
         mc.map = m
         self._ts = ts_next
-        s = fused.FrameSummary(*(x.cpu().numpy() for x in summary))
+        s = fused.FrameSummary(*(None if x is None else x.cpu().numpy() for x in summary))
         n_inl = int(s.n_inliers)
         self.T_cw = torch.as_tensor(s.T_cw, device=self.device)
         if not bool(s.tracking_ok):
@@ -394,11 +681,29 @@ class RobotTracker:
             return 0  # tracking failure regardless of the raw inlier count
         self._last_ref = (int(s.ref_slot), np.asarray(s.T_rel))
         if bool(s.new_kf):
-            mc.n_kf = int(s.kf_slot) + 1
+            slot = int(s.kf_slot)
+            mc.n_kf = slot + 1
+            mc.update_bow_row(slot)
+            if mc.try_close_loop(slot, self.generator):
+                # the correction moved the map: restart the motion model there
+                self._sync_from_ts()
+                self.T_cw = mc.map.kf_pose[slot]
+                self.last_T = self.T_cw
+                self.velocity = torch.eye(4, dtype=torch.float32, device=self.device)
+            mc.gba_slice()
         return n_inl
 
-    def _try_relocalize(self, feats: Features) -> int:
-        raise _not_ported(_LOOP)
+    def _rebase_after_loop(self, T_old, T_new):
+        """The correction moved the map under the camera: re-express the
+        tracking state through the corrected keyframe (the velocity is
+        relative and stays)."""
+        if self._ts is not None:
+            self._ts = fused.rebase_track_state(self._ts, T_old, T_new)
+            # correct_loop moved landmarks: the carried indicator is rebuilt
+            self._ts = self._ts._replace(obs_ind=ms.lm_indicator(self.mapctx.map))
+        else:
+            self.last_T = self.last_T @ geo.T_inv(T_old) @ T_new
+        self.T_cw = self.T_cw @ geo.T_inv(T_old) @ T_new
 
     # -- chunked streaming path ---------------------------------------------
     def process_frames(self, images, timestamps) -> list[FrameRecord]:
@@ -430,32 +735,48 @@ class RobotTracker:
     def _dispatch_chunk(self, images, timestamps) -> dict:
         """Run one chunk through the chunk step. Returns a token for
         ``_finish_chunk``."""
-        self._check_loop_closing_off()
+        self._vocabulary_gate()
         mc = self.mapctx
         cs = len(timestamps)
+        want_bow = mc.voc is not None and mc.kf_bow is not None
+        if self._chunk_step is None or self._chunk_bow != want_bow:
+            self._chunk_step = fused.make_chunk_step(self.cfg, self.extract, self.K,
+                                                     with_bow=want_bow)
+            self._chunk_bow = want_bow
         if self._ts is None:
             self._ts = self._make_ts()
         fids = list(range(self.frame_id + 1, self.frame_id + 1 + cs))
         stamps = [float(t) for t in np.asarray(timestamps, np.float32)]
-        m, ts, summaries = self._chunk_step(mc.map, self._ts, images, fids, stamps)
+        allow_kf = not self.localization_only
+        if want_bow:
+            m, ts, mc.kf_bow, summaries = self._chunk_step(
+                mc.map, self._ts, mc.kf_bow, mc.voc, images, fids, stamps, allow_kf)
+        else:
+            m, ts, summaries = self._chunk_step(mc.map, self._ts, images, fids, stamps,
+                                                allow_kf)
         mc.map = m
         self._ts = ts
         fid0 = self.frame_id + 1
         self.frame_id += cs
         return {"mc": mc, "summaries": summaries,
                 "timestamps": [float(t) for t in timestamps], "fid0": fid0,
-                "gen": self._gen}
+                "want_bow": want_bow, "gen": self._gen}
 
     def _finish_chunk(self, token: dict) -> list[FrameRecord]:
-        """Read a chunk's summaries and write its frame records."""
+        """Read a chunk's summaries, write its frame records and run the
+        keyframe-rate events (loop closing, the overlapped GBA slice)."""
         mc: MapContext = token["mc"]
         timestamps = token["timestamps"]
-        s = fused.FrameSummary(*(x.cpu().numpy() for x in token["summaries"]))
+        s = fused.FrameSummary(*(None if x is None else x.cpu().numpy()
+                                 for x in token["summaries"]))
         # a chunk dispatched before a reset is stale: emit its records but
         # leave the tracker's new state machine alone
         stale = token["gen"] != self._gen or self.mapctx is not mc
         recs: list[FrameRecord] = []
-        last_T = self.T_cw.cpu().numpy() if torch.is_tensor(self.T_cw) else self.T_cw
+        new_kfs: list[tuple[int, int]] = []  # (slot, j)
+        # pass 1: records + keyframe bookkeeping — the map knows all of the
+        # chunk's keyframes before loop closing runs
+        last_T = _np(self.T_cw)
         for j in range(len(timestamps)):
             ok = bool(s.tracking_ok[j])
             if ok:
@@ -463,7 +784,9 @@ class RobotTracker:
                 if not stale:
                     self.T_cw = torch.as_tensor(last_T, device=self.device)
                 if bool(s.new_kf[j]):
-                    mc.n_kf = max(mc.n_kf, int(s.kf_slot[j]) + 1)
+                    slot = int(s.kf_slot[j])
+                    mc.n_kf = max(mc.n_kf, slot + 1)
+                    new_kfs.append((slot, j))
             elif not stale:
                 self.state = TrackingState.LOST
             rec = FrameRecord(
@@ -478,32 +801,58 @@ class RobotTracker:
             )
             self.frames.append(rec)
             recs.append(rec)
-        if not stale:
-            self._maybe_reset_young_map()
+        if stale:
+            return recs
+        self._maybe_reset_young_map()
+        if token["want_bow"]:
+            # BoW rows + candidate scores were computed inside the chunk
+            loop_pre = {slot: (np.asarray(s.loop_scores[j]), float(s.loop_min_score[j]))
+                        for slot, j in new_kfs}
+        else:
+            mc.update_bow_rows([slot for slot, _ in new_kfs])
+            loop_pre = mc.loop_scan([slot for slot, _ in new_kfs])
+        # pass 2: loop closing per new keyframe
+        loop_rebase = None
+        for slot, _j in new_kfs:
+            pose_before = mc.map.kf_pose[slot].clone()
+            if mc.try_close_loop(slot, self.generator, precomputed=loop_pre.get(slot)):
+                loop_rebase = (pose_before, mc.map.kf_pose[slot].clone())
+        if loop_rebase is not None and self._ts is not None:
+            self._rebase_after_loop(*loop_rebase)
+        # overlapped global BA: one slice per chunk boundary while scheduled
+        mc.gba_slice()
         return recs
 
     # -- public API --------------------------------------------------------
     def process_frame(self, image, timestamp: float) -> FrameRecord:
-        self._check_loop_closing_off()
+        self._vocabulary_gate()
         self.frame_id += 1
         img = torch.as_tensor(image, device=self.device)
         n_inl = 0
         if self.state in (TrackingState.NO_IMAGES_YET, TrackingState.NOT_INITIALIZED):
-            feats = self.extract_init(img)
-            self.state = TrackingState.NOT_INITIALIZED
-            self._try_initialize(feats, timestamp)
+            if self.localization_only and self.mapctx.n_kf >= 2:
+                # localization mode on a built map: no two-view init,
+                # localize straight against the keyframe database
+                self.state = TrackingState.NOT_INITIALIZED
+                n_inl = self._try_relocalize(self.extract(img))
+            else:
+                feats = self.extract_init(img)
+                self.state = TrackingState.NOT_INITIALIZED
+                self._try_initialize(feats, timestamp)
         elif self.state == TrackingState.OK:
             n_inl = self._track_fused(img, timestamp)
             if n_inl < self.cfg.tracking.min_inliers_local_map:
                 self.state = TrackingState.LOST
                 self._maybe_reset_young_map()
         else:
-            self._try_relocalize(self.extract(img))
+            # LOST on a single map: relocalize against the keyframe
+            # database (Tracking::Relocalization, Tracking.cc:1404)
+            n_inl = self._try_relocalize(self.extract(img))
         ok_now = self.state == TrackingState.OK
         rec = FrameRecord(
             frame_id=self.frame_id,
             timestamp=timestamp,
-            T_cw=self.T_cw.cpu().numpy(),
+            T_cw=_np(self.T_cw),
             state=self.state.name,
             n_inliers=n_inl,
             map_id=self.mapctx.map_id,
@@ -532,6 +881,8 @@ class MonocularSession:
 
     @enable_loop_closing.setter
     def enable_loop_closing(self, on: bool):
+        # a runtime toggle: try_close_loop checks it, and so does the
+        # vocabulary gate
         self.tracker.mapctx.loop_closing_enabled = bool(on)
 
     # -- passthroughs ------------------------------------------------------
@@ -552,11 +903,21 @@ class MonocularSession:
         return self.tracker.frames
 
     @property
+    def loops_closed(self):
+        return self.tracker.mapctx.loops_closed
+
+    @property
     def T_cw(self):
         return self.tracker.T_cw
 
     def activate_localization_mode(self):
-        raise _not_ported(_LOCALIZATION)
+        """Freeze the map; track and relocalize only (System.cc:375)."""
+        self.tracker._sync_from_ts()
+        self.tracker.mapctx.ensure_vocabulary()  # relocalization needs the database
+        self.tracker.localization_only = True
+
+    def deactivate_localization_mode(self):
+        self.tracker.localization_only = False
 
     def process_frame(self, image, timestamp):
         return self.tracker.process_frame(image, timestamp)
@@ -579,3 +940,9 @@ class MonocularSession:
         stamps = np.array([f.timestamp for f in ok])
         poses = np.stack(resolve_frame_poses(ok)) if stamps.size else np.zeros((0, 4, 4))
         return stamps, poses
+
+    def summary(self) -> dict:
+        s = self.tracker.mapctx.summary()
+        s["state"] = self.tracker.state.name
+        s["frames"] = len(self.frames)
+        return s

@@ -1,12 +1,15 @@
-"""Nonlinear least squares: motion-only BA and window Schur BA (port of the
-``pose_optimize`` and ``bundle_adjust_window`` parts of orbslamm_tpu/ops/ba.py).
+"""Nonlinear least squares (port of orbslamm_tpu/ops/ba.py, monocular edges):
+motion-only BA, window Schur BA, the Sim3 pose graph, Sim3 refinement and
+the edge-list BA with a matrix-free Schur solve (global BA).
 
-Both are fixed-count Levenberg–Marquardt loops. The JAX package skips the
-iterations after convergence with ``lax.cond`` inside ``lax.scan``; here
-every iteration runs and a converged carry is frozen with ``torch.where``,
-so no decision ever leaves the device. Linear solves use ``solve_ex``
-(no error check, hence no host sync). Monocular edges only; the stereo
-``u_r`` residual comes with the stereo port.
+All are fixed-count Levenberg–Marquardt loops. Where the JAX package skips
+the iterations after convergence with ``lax.cond`` inside ``lax.scan``, a
+converged carry is frozen with ``torch.where`` here, so no decision ever
+leaves the device; where it runs every iteration (pose graph, Sim3
+refinement, global BA) so does the port. Linear solves use ``solve_ex`` /
+``inv_ex`` (no error check, hence no host sync). Segment sums are
+``index_add_`` (on CUDA their float order varies from run to run). The
+stereo ``u_r`` residual comes with the stereo port.
 """
 
 from __future__ import annotations
@@ -333,3 +336,408 @@ def bundle_adjust_window(T_cw, K, cam_valid, cam_fixed, points, point_valid,
     inlier = obs_valid & (chi2 <= chi2_th) & (pc[..., 2] > 1e-3)
     return WindowBAResult(T_cw=T_all, points=pts, obs_inlier=inlier,
                           cost=cost_of(r, pc, base_use))
+
+
+# ---------------------------------------------------------------------------
+# Sim3 pose-graph optimization (essential graph)
+# ---------------------------------------------------------------------------
+
+class PoseGraphProblem(NamedTuple):
+    """Sim3 pose graph (reference Optimizer::OptimizeEssentialGraph): nodes
+    are keyframe Sim3 poses (world -> KF), edges relative Sim3 measurements
+    from the spanning tree, strong covisibility and loop closures."""
+
+    S_iw: torch.Tensor  # [C,8] packed sim3 node poses (node-from-world)
+    node_valid: torch.Tensor  # [C]
+    node_fixed: torch.Tensor  # [C]
+    edge_i: torch.Tensor  # [E] int32
+    edge_j: torch.Tensor  # [E] int32
+    edge_Sij: torch.Tensor  # [E,8] measured S_i o S_j^-1
+    edge_valid: torch.Tensor  # [E]
+    edge_weight: torch.Tensor  # [E] information scale
+
+
+def _pg_residual(S_i, S_j, M_ij):
+    """r = log(M_ij o S_j o S_i^-1): zero when S_i o S_j^-1 == M_ij."""
+    return geo.sim3_log(geo.sim3_compose(M_ij, geo.sim3_compose(S_j, geo.sim3_inv(S_i))))
+
+
+def _pg_edge_residual(xi_i, xi_j, S_i, S_j, M):
+    return _pg_residual(geo.sim3_compose(geo.sim3_exp(xi_i), S_i),
+                        geo.sim3_compose(geo.sim3_exp(xi_j), S_j), M)
+
+
+def _jacfwd_batched(f, x: torch.Tensor) -> torch.Tensor:
+    """Forward-mode Jacobian of a function batched over a leading axis:
+    x [B, D] -> f(x) [B, R]; returns [B, R, D], one JVP per input dimension
+    (under ``torch.func.vmap``), the derivatives ``jax.jacfwd`` computes.
+    Every tensor keeps its batch axis: forward-mode AD promotes the tangent
+    of a 0-d tensor combined with a Python float to float64."""
+    B, D = x.shape
+    basis = torch.eye(D, dtype=x.dtype, device=x.device)[:, None, :].expand(D, B, D)
+    J = torch.func.vmap(lambda t: torch.func.jvp(f, (x,), (t,))[1])(basis)  # [D,B,R]
+    return J.permute(1, 2, 0)
+
+
+def _seg_add(n: int, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """Segment sum of edge values into ``n`` nodes (scatter form; on CUDA the
+    float order of the atomics varies from run to run)."""
+    out = torch.zeros((n,) + vals.shape[1:], dtype=vals.dtype, device=vals.device)
+    return out.index_add_(0, idx, vals)
+
+
+def pose_graph_optimize(p: PoseGraphProblem, iters: int = 20, lam0: float = 1e-4,
+                        cg_iters: int = 50) -> torch.Tensor:
+    """Matrix-free LM over the Sim3 pose graph; returns optimized S_iw [C,8].
+
+    Per-edge Jacobians are exact forward-mode derivatives (as the JAX
+    package's ``vmap(jacfwd)``), computed for all edges at once. H x is
+    three edge-wise segment ops, solved by a fixed count of block-Jacobi
+    preconditioned CG iterations. Like the JAX
+    package's ``lax.scan``, every LM and CG iteration runs; a rejected step
+    leaves S unchanged."""
+    with stage("ba.pose_graph"):
+        return _pose_graph_optimize(p, iters, lam0, cg_iters)
+
+
+def _pose_graph_optimize(p, iters, lam0, cg_iters):
+    C = p.S_iw.shape[0]
+    E = p.edge_i.shape[0]
+    dev = p.S_iw.device
+    ei, ej = p.edge_i.long(), p.edge_j.long()
+    zeros = torch.zeros((E, 7), dtype=torch.float32, device=dev)
+
+    def jac(Si, Sj):
+        J = _jacfwd_batched(
+            lambda x: _pg_edge_residual(x[:, :7], x[:, 7:], Si, Sj, p.edge_Sij),
+            torch.zeros((E, 14), dtype=torch.float32, device=dev))
+        return J[..., :7], J[..., 7:]
+
+    lock = p.node_fixed | ~p.node_valid
+    w = torch.where(p.edge_valid, p.edge_weight, torch.zeros_like(p.edge_weight))
+    eye7 = torch.eye(7, dtype=torch.float32, device=dev)
+
+    def total_cost(S):
+        r = _pg_edge_residual(zeros, zeros, S[ei], S[ej], p.edge_Sij)
+        return (w * (r * r).sum(-1)).sum()
+
+    S = p.S_iw
+    lam = torch.tensor(lam0, dtype=torch.float32, device=dev)
+    for _ in range(iters):
+        Si, Sj = S[ei], S[ej]
+        r = _pg_edge_residual(zeros, zeros, Si, Sj, p.edge_Sij)  # [E,7]
+        Ji, Jj = jac(Si, Sj)  # [E,7,7] each
+        wJi = Ji * w[:, None, None]
+        wJj = Jj * w[:, None, None]
+        g = _seg_add(C, ei, torch.einsum("eia,ei->ea", wJi, r)) \
+            + _seg_add(C, ej, torch.einsum("eia,ei->ea", wJj, r))
+        Hd = _seg_add(C, ei, torch.einsum("eia,eib->eab", wJi, Ji)) \
+            + _seg_add(C, ej, torch.einsum("eia,eib->eab", wJj, Jj))
+        damp = (lam + 1e-6) * torch.clamp_min(torch.diagonal(Hd, dim1=-2, dim2=-1), 1.0)
+
+        def mv(x, Ji=Ji, Jj=Jj, wJi=wJi, wJj=wJj, damp=damp):
+            y = torch.einsum("eab,eb->ea", Ji, x[ei]) + torch.einsum("eab,eb->ea", Jj, x[ej])
+            out = _seg_add(C, ei, torch.einsum("eab,ea->eb", wJi, y)) \
+                + _seg_add(C, ej, torch.einsum("eab,ea->eb", wJj, y))
+            return torch.where(lock[:, None], x, out + damp * x)
+
+        Hd_damped = torch.where(lock[:, None, None], eye7, Hd + torch.diag_embed(damp))
+        Minv = torch.linalg.inv_ex(Hd_damped + 1e-8 * eye7)[0]
+        rhs = torch.where(lock[:, None], torch.zeros_like(g), -g)
+        x = torch.zeros((C, 7), dtype=torch.float32, device=dev)
+        rr = rhs
+        pv = torch.einsum("cab,cb->ca", Minv, rhs)
+        rz = (rr * pv).sum()
+        for _ in range(cg_iters):
+            Ap = mv(pv)
+            alpha = rz / torch.clamp_min((pv * Ap).sum(), 1e-12)
+            x = x + alpha * pv
+            rr = rr - alpha * Ap
+            z = torch.einsum("cab,cb->ca", Minv, rr)
+            rz_new = (rr * z).sum()
+            beta = rz_new / torch.clamp_min(rz, 1e-12)
+            pv = z + beta * pv
+            rz = rz_new
+        dx = torch.where(lock[:, None], torch.zeros_like(x), x)
+        S_new = geo.sim3_compose(geo.sim3_exp(dx), S)
+        S_new = torch.where(lock[:, None], S, S_new)
+        c_old = total_cost(S)
+        c_new = total_cost(S_new)
+        better = (c_new < c_old) & torch.isfinite(c_new)
+        S = torch.where(better, S_new, S)
+        lam = torch.where(better, torch.clamp_min(lam * 0.3, 1e-7), torch.clamp_max(lam * 5.0, 1e4))
+    return S
+
+
+# ---------------------------------------------------------------------------
+# Sim3 refinement (OptimizeSim3)
+# ---------------------------------------------------------------------------
+
+class Sim3RefineResult(NamedTuple):
+    S: torch.Tensor  # [8] refined packed Sim3 (frame-1 points -> frame-2 coords)
+    inliers: torch.Tensor  # [N] bool — both-direction chi2 survivors
+    n_inliers: torch.Tensor  # int32
+
+
+def sim3_refine(S21, pts1, pts2, valid, K1, K2, sigma2=1.0, iters: int = 8,
+                chi2_th: float = 10.0, fix_scale: bool = False) -> Sim3RefineResult:
+    """Nonlinear Sim3 refinement with bidirectional projection edges (the
+    reference Optimizer::OptimizeSim3 analog): a forward edge (point 1
+    through S21 into image 2) and a backward edge (point 2 through S21^-1
+    into image 1) per correspondence, each Huber-weighted and truncated far
+    outside the Huber zone; LM on the 7-DoF tangent (6 with ``fix_scale``).
+    Inliers pass ``chi2_th`` in both directions at the refined transform."""
+    dev = pts1.device
+    sigma2 = torch.as_tensor(sigma2, dtype=torch.float32, device=dev).expand(valid.shape)
+    inv_s2 = 1.0 / sigma2
+    uv1 = geo.project(K1, pts1)
+    uv2 = geo.project(K2, pts2)
+    delta = chi2_th ** 0.5
+    eye7 = torch.eye(7, dtype=torch.float32, device=dev)
+
+    def residuals(S):
+        p12 = geo.sim3_apply(S, pts1)
+        p21 = geo.sim3_apply(geo.sim3_inv(S), pts2)
+        return geo.project(K2, p12) - uv2, geo.project(K1, p21) - uv1, p12[..., 2], p21[..., 2]
+
+    def cost(S_):
+        rf, rb, zf, zb = residuals(S_)
+        c2f = (rf * rf).sum(-1) * inv_s2
+        c2b = (rb * rb).sum(-1) * inv_s2
+        cap = 2.0 * delta * (36.0 * chi2_th) ** 0.5 - chi2_th
+
+        def hub(c2):
+            h = torch.where(c2 <= chi2_th, c2, 2.0 * delta * torch.sqrt(c2) - chi2_th)
+            return torch.clamp_max(h, cap)
+
+        ok = valid & (zf > 1e-3) & (zb > 1e-3)
+        return torch.where(ok, hub(c2f) + hub(c2b), torch.zeros_like(c2f)).sum()
+
+    S = S21
+    lam = torch.tensor(1e-4, dtype=torch.float32, device=dev)
+    zero = torch.zeros((1, 7), dtype=torch.float32, device=dev)
+    for _ in range(iters):
+        def r_of(xi, S=S):  # [1,7] -> [1, N*4]; S keeps a batch axis of 1
+            r_f, r_b, _, _ = residuals(geo.sim3_compose(geo.sim3_exp(xi), S[None]))
+            return torch.cat([r_f, r_b], dim=-1).reshape(1, -1)
+
+        N = pts1.shape[0]
+        r = r_of(zero).reshape(N, 4)
+        J = _jacfwd_batched(r_of, zero).reshape(N, 4, 7)
+        if fix_scale:
+            J = torch.cat([J[..., :6], torch.zeros_like(J[..., 6:])], -1)
+        r_f, r_b, z_f, z_b = residuals(S)
+        use = valid & (z_f > 1e-3) & (z_b > 1e-3)
+        nf = torch.sqrt((r_f * r_f).sum(-1) * inv_s2 + 1e-12)
+        nb = torch.sqrt((r_b * r_b).sum(-1) * inv_s2 + 1e-12)
+        w_f = torch.where(nf > delta, delta / nf, torch.ones_like(nf)) * inv_s2
+        w_b = torch.where(nb > delta, delta / nb, torch.ones_like(nb)) * inv_s2
+        w_f = torch.where(nf > 6.0 * delta, torch.zeros_like(w_f), w_f)
+        w_b = torch.where(nb > 6.0 * delta, torch.zeros_like(w_b), w_b)
+        w4 = torch.stack([w_f, w_f, w_b, w_b], -1) * use[:, None]
+        Jw = J * w4[..., None]
+        H = torch.einsum("nia,nib->ab", Jw, J) + 1e-6 * eye7
+        g = torch.einsum("nia,ni->a", Jw, r)
+        H = H + lam * torch.diag(torch.diagonal(H))
+        if fix_scale:
+            H = H.clone()
+            H[6, 6] = 1.0
+        dx = -torch.linalg.solve_ex(H, g[:, None])[0][:, 0]
+        if fix_scale:
+            dx = torch.cat([dx[:6], torch.zeros_like(dx[6:])])
+        S_new = geo.sim3_compose(geo.sim3_exp(dx), S)
+        better = (cost(S_new) < cost(S)) & torch.isfinite(S_new).all()
+        S = torch.where(better, S_new, S)
+        lam = torch.where(better, torch.clamp_min(lam * 0.3, 1e-7), torch.clamp_max(lam * 5.0, 1e4))
+    r_f, r_b, z_f, z_b = residuals(S)
+    c2f = (r_f * r_f).sum(-1) * inv_s2
+    c2b = (r_b * r_b).sum(-1) * inv_s2
+    inl = valid & (c2f < chi2_th) & (c2b < chi2_th) & (z_f > 1e-3) & (z_b > 1e-3)
+    return Sim3RefineResult(S=S, inliers=inl, n_inliers=inl.sum().to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# Edge-list bundle adjustment with a matrix-free Schur solve (global BA)
+# ---------------------------------------------------------------------------
+
+class BAProblem(NamedTuple):
+    """Fixed-capacity bundle-adjustment problem in edge-list form. Monocular
+    edges only here: ``obs_ur``/``bf`` stay None until the stereo port."""
+
+    T_cw: torch.Tensor  # [C,4,4] camera poses
+    K: torch.Tensor  # [C,3,3] per-camera intrinsics
+    cam_valid: torch.Tensor  # [C] bool
+    cam_fixed: torch.Tensor  # [C] bool — gauge anchors
+    points: torch.Tensor  # [P,3]
+    point_valid: torch.Tensor  # [P] bool
+    obs_cam: torch.Tensor  # [E] int32
+    obs_point: torch.Tensor  # [E] int32
+    obs_uv: torch.Tensor  # [E,2]
+    obs_sigma2: torch.Tensor  # [E]
+    obs_valid: torch.Tensor  # [E] bool
+    obs_ur: torch.Tensor | None = None  # [E] (stereo port)
+    bf: torch.Tensor | None = None  # [C] (stereo port)
+
+
+class BAResult(NamedTuple):
+    T_cw: torch.Tensor
+    points: torch.Tensor
+    obs_inlier: torch.Tensor  # [E] final chi2 classification
+    cost: torch.Tensor
+
+
+def _check_mono(p: BAProblem):
+    if p.obs_ur is not None or p.bf is not None:
+        raise NotImplementedError(
+            "stereo BA rows (ROADMAP queue 1, step 13) are not ported to orbslamm_tpu_torch yet")
+
+
+def _ba_residuals(T_cw, K, points, p: BAProblem):
+    oc, op = p.obs_cam.long(), p.obs_point.long()
+    Tc = T_cw[oc]  # [E,4,4]
+    Kc = K[oc]
+    pc = torch.einsum("eij,ej->ei", Tc[:, :3, :3], points[op]) + Tc[:, :3, 3]
+    return geo.project(Kc, pc) - p.obs_uv, pc, Tc, Kc
+
+
+def _ba_jacobians(Kc, Tc, pc, p: BAProblem):
+    """Per-edge J wrt camera twist [E,2,6] and wrt point [E,2,3]."""
+    fx, fy = Kc[:, 0, 0], Kc[:, 1, 1]
+    x, y, z = pc[:, 0], pc[:, 1], pc[:, 2]
+    zi = 1.0 / torch.clamp_min(z, 1e-6)
+    zi2 = zi * zi
+    zero = torch.zeros_like(x)
+    du = torch.stack([fx * zi, zero, -fx * x * zi2], -1)
+    dv = torch.stack([zero, fy * zi, -fy * y * zi2], -1)
+    dpd = torch.stack([du, dv], -2)  # [E,2,3]
+    px = geo.skew(pc)
+    eye = torch.eye(3, dtype=pc.dtype, device=pc.device).expand_as(px)
+    Jc = dpd @ torch.cat([eye, -px], -1)
+    Jp = dpd @ Tc[:, :3, :3]
+    return Jc, Jp
+
+
+def _chi2_per_edge(p: BAProblem, chi2_th):
+    """Per-edge chi2 gate (the stereo 3-DoF threshold comes with step 13)."""
+    return chi2_th
+
+
+def _robust_weights(r, sigma2, use, chi2_th):
+    """Huber IRLS weight times information (1/sigma2)."""
+    rn = torch.linalg.norm(r, dim=-1)
+    delta = torch.sqrt(chi2_th * sigma2)
+    w = torch.where(rn > delta, delta / torch.clamp_min(rn, 1e-9), torch.ones_like(rn)) / sigma2
+    return torch.where(use, w, torch.zeros_like(w))
+
+
+def _ba_cost_from_residual(r, pc, p: BAProblem, use, chi2_th):
+    chi2 = (r * r).sum(-1) / p.obs_sigma2
+    hub = torch.where(chi2 <= chi2_th, chi2, 2.0 * torch.sqrt(chi2_th * chi2) - chi2_th)
+    return torch.where(use & (pc[:, 2] > 1e-3), hub, torch.zeros_like(hub)).sum()
+
+
+def _ba_cost(T_cw, K, points, p: BAProblem, use, chi2_th):
+    r, pc, _, _ = _ba_residuals(T_cw, K, points, p)
+    return _ba_cost_from_residual(r, pc, p, use, chi2_th)
+
+
+def bundle_adjust_cg(p: BAProblem, iters: int = 10, cg_iters: int = 30,
+                     chi2_th: float = CHI2_MONO, lam0: float = 1e-4) -> BAResult:
+    """LM bundle adjustment with a matrix-free Schur solve (reference
+    RunGlobalBundleAdjustment): the reduced camera system is solved by a
+    fixed count of block-Jacobi preconditioned CG iterations whose
+    matrix-vector product is three edge-wise segment sums (``index_add_``).
+    ``cost`` is the last iteration's trial cost, as in the JAX package."""
+    _check_mono(p)
+    with stage("ba.global_cg"):
+        return _bundle_adjust_cg(p, iters, cg_iters, chi2_th, lam0)
+
+
+def _bundle_adjust_cg(p, iters, cg_iters, chi2_th, lam0):
+    C = p.T_cw.shape[0]
+    Pn = p.points.shape[0]
+    dev = p.points.device
+    oc, op = p.obs_cam.long(), p.obs_point.long()
+    chi2_e = _chi2_per_edge(p, chi2_th)
+    eye3 = torch.eye(3, dtype=torch.float32, device=dev)
+    eye6 = torch.eye(6, dtype=torch.float32, device=dev)
+    lock = p.cam_fixed | ~p.cam_valid
+    free = ~p.cam_fixed
+    use0 = p.obs_valid & p.cam_valid[oc] & p.point_valid[op]
+
+    def seg_cam(v):
+        return _seg_add(C, oc, v)
+
+    def seg_pt(v):
+        return _seg_add(Pn, op, v)
+
+    T_cw, points = p.T_cw, p.points
+    lam = torch.tensor(lam0, dtype=torch.float32, device=dev)
+    c_new = None
+    for _ in range(iters):
+        r, pc, Tc, Kc = _ba_residuals(T_cw, p.K, points, p)
+        use = use0 & (pc[:, 2] > 1e-3)
+        w = _robust_weights(r, p.obs_sigma2, use, chi2_e)
+        Jc, Jp = _ba_jacobians(Kc, Tc, pc, p)
+        Jc = Jc * free[oc][:, None, None]
+        wJc = Jc * w[:, None, None]
+        wJp = Jp * w[:, None, None]
+        Hcc = seg_cam(torch.einsum("eia,eib->eab", wJc, Jc))
+        Hpp = seg_pt(torch.einsum("eia,eib->eab", wJp, Jp))
+        gc = seg_cam(torch.einsum("eia,ei->ea", wJc, r))
+        gp = seg_pt(torch.einsum("eia,ei->ea", wJp, r))
+        tr_c = torch.diagonal(Hcc, dim1=-2, dim2=-1).sum(-1)
+        Hcc_d = Hcc + ((lam + 1e-5) * eye6)[None] * torch.clamp_min(tr_c / 6.0, 1.0)[:, None, None]
+        tr_p = torch.diagonal(Hpp, dim1=-2, dim2=-1).sum(-1)
+        Hpp_d = Hpp + ((lam + 1e-5) * eye3)[None] * torch.clamp_min(tr_p / 3.0, 1.0)[:, None, None]
+        observed = seg_pt(w) > 1e-9
+        Hpp_d = torch.where(observed[:, None, None], Hpp_d, eye3[None])
+        Hpp_inv = _inv3x3(Hpp_d)
+        Wcp = torch.einsum("eia,eib->eab", wJc, Jp)  # [E,6,3]
+
+        def schur_mv(x, Wcp=Wcp, Hpp_inv=Hpp_inv, Hcc_d=Hcc_d):
+            y = seg_pt(torch.einsum("eab,ea->eb", Wcp, x[oc]))
+            z = torch.einsum("pab,pb->pa", Hpp_inv, y)
+            back = seg_cam(torch.einsum("eab,eb->ea", Wcp, z[op]))
+            return torch.einsum("cab,cb->ca", Hcc_d, x) - back
+
+        Sdiag = Hcc_d - seg_cam(torch.einsum("eab,ebd,ecd->eac", Wcp, Hpp_inv[op], Wcp))
+        Sdiag = torch.where(lock[:, None, None], eye6[None], Sdiag)
+        Minv = torch.linalg.inv_ex(Sdiag + 1e-6 * eye6[None])[0]
+        zp = torch.einsum("pab,pb->pa", Hpp_inv, gp)
+        rhs = -(gc - seg_cam(torch.einsum("eab,eb->ea", Wcp, zp[op])))
+        rhs = torch.where(lock[:, None], torch.zeros_like(rhs), rhs)
+
+        x = torch.zeros((C, 6), dtype=torch.float32, device=dev)
+        rr = rhs
+        pvec = torch.einsum("cab,cb->ca", Minv, rr)
+        rz = (rr * pvec).sum()
+        for _ in range(cg_iters):
+            Ap = torch.where(lock[:, None], pvec, schur_mv(pvec))
+            alpha = rz / torch.clamp_min((pvec * Ap).sum(), 1e-12)
+            x = x + alpha * pvec
+            rr = rr - alpha * Ap
+            znew = torch.einsum("cab,cb->ca", Minv, rr)
+            rz_new = (rr * znew).sum()
+            beta = rz_new / torch.clamp_min(rz, 1e-12)
+            pvec = znew + beta * pvec
+            rz = rz_new
+        dc = torch.where(lock[:, None], torch.zeros_like(x), x)
+        wt = seg_pt(torch.einsum("eab,ea->eb", Wcp, dc[oc]))
+        dp = -torch.einsum("pab,pb->pa", Hpp_inv, gp + wt)
+        dp = dp * (p.point_valid & observed)[:, None]
+
+        T_new = geo.se3_exp(dc) @ T_cw
+        T_new = torch.where(lock[:, None, None], T_cw, T_new)
+        pts_new = points + dp
+        c_old = _ba_cost_from_residual(r, pc, p, p.obs_valid, chi2_e)
+        c_new = _ba_cost(T_new, p.K, pts_new, p, p.obs_valid, chi2_e)
+        finite = torch.isfinite(c_new) & torch.isfinite(T_new).all() & torch.isfinite(pts_new).all()
+        better = (c_new < c_old) & finite
+        T_cw = torch.where(better, T_new, T_cw)
+        points = torch.where(better, pts_new, points)
+        lam = torch.where(better, torch.clamp_min(lam * 0.3, 1e-8), torch.clamp_max(lam * 5.0, 1e3))
+    r, pc, _, _ = _ba_residuals(T_cw, p.K, points, p)
+    chi2 = (r * r).sum(-1) / p.obs_sigma2
+    inlier = p.obs_valid & (chi2 <= chi2_e) & (pc[:, 2] > 1e-3)
+    return BAResult(T_cw=T_cw, points=points, obs_inlier=inlier, cost=c_new)

@@ -65,6 +65,16 @@ def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
     return q * torch.sign(q[..., 3:4] + _EPS)
 
 
+def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
+    """[..., 4] (x, y, z, w) -> [..., 3, 3]."""
+    q = q / (torch.linalg.norm(q, dim=-1, keepdim=True) + _EPS)
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    row0 = torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)], -1)
+    row1 = torch.stack([2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)], -1)
+    row2 = torch.stack([2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)], -1)
+    return torch.stack([row0, row1, row2], dim=-2)
+
+
 def so3_log(R: torch.Tensor) -> torch.Tensor:
     """[..., 3, 3] rotation -> [..., 3] axis-angle with theta in [0, pi],
     through the quaternion (robust near both 0 and pi)."""
@@ -148,6 +158,163 @@ def project(K: torch.Tensor, pts_cam: torch.Tensor) -> torch.Tensor:
     u = fx * pts_cam[..., 0] * inv_z + cx
     v = fy * pts_cam[..., 1] * inv_z + cy
     return torch.stack([u, v], dim=-1)
+
+
+def backproject(K: torch.Tensor, uv: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
+    """Pixel + depth -> camera-frame 3D point."""
+    fx, fy = K[..., 0, 0], K[..., 1, 1]
+    cx, cy = K[..., 0, 2], K[..., 1, 2]
+    x = (uv[..., 0] - cx) / fx * depth
+    y = (uv[..., 1] - cy) / fy * depth
+    return torch.stack([x, y, depth], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Sim3 — stored as [..., 8]: (quat xyzw, t xyz, log_s)
+# ---------------------------------------------------------------------------
+
+def sim3_make(s: torch.Tensor, R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """(scale [...], rot [..., 3, 3], trans [..., 3]) -> packed [..., 8]."""
+    return torch.cat([rot_to_quat(R), t, torch.log(s)[..., None]], dim=-1)
+
+
+def sim3_identity(batch: tuple = (), *, device, dtype=torch.float32) -> torch.Tensor:
+    q = torch.tensor([0, 0, 0, 1, 0, 0, 0, 0], dtype=dtype, device=device)
+    return q.expand(*batch, 8)
+
+
+def sim3_parts(S: torch.Tensor):
+    """[..., 8] -> (s [...], R [..., 3, 3], t [..., 3])."""
+    return torch.exp(S[..., 7]), quat_to_rot(S[..., :4]), S[..., 4:7]
+
+
+def sim3_apply(S: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """x' = s R x + t; pts [..., N, 3] or [..., 3]."""
+    s, R, t = sim3_parts(S)
+    if pts.ndim >= 2 and pts.shape[-1] == 3 and pts.ndim > S.ndim:
+        return s[..., None, None] * (pts @ R.transpose(-1, -2)) + t[..., None, :]
+    return s[..., None] * (R @ pts[..., None])[..., 0] + t
+
+
+def sim3_compose(Sa: torch.Tensor, Sb: torch.Tensor) -> torch.Tensor:
+    """S = Sa o Sb (apply Sb first)."""
+    sa, Ra, ta = sim3_parts(Sa)
+    sb, Rb, tb = sim3_parts(Sb)
+    t = sa[..., None] * (Ra @ tb[..., None])[..., 0] + ta
+    return sim3_make(sa * sb, Ra @ Rb, t)
+
+
+def sim3_inv(S: torch.Tensor) -> torch.Tensor:
+    s, R, t = sim3_parts(S)
+    Rt = R.transpose(-1, -2)
+    sinv = 1.0 / s
+    return sim3_make(sinv, Rt, -sinv[..., None] * (Rt @ t[..., None])[..., 0])
+
+
+def sim3_from_se3(T: torch.Tensor) -> torch.Tensor:
+    ones = torch.ones(T.shape[:-2], dtype=T.dtype, device=T.device)
+    return sim3_make(ones, T[..., :3, :3], T[..., :3, 3])
+
+
+def sim3_to_se3(S: torch.Tensor) -> torch.Tensor:
+    """Scale folded into translation as ``t / s`` (the reference's mapping of
+    a corrected Sim3 back onto an SE3 keyframe pose, MultiMapper.cc:552-556)."""
+    s, R, t = sim3_parts(S)
+    return rt_to_T(R, t / s[..., None])
+
+
+def _sim3_V(sigma, s, phi):
+    """The Sim3 V matrix (Strasdat) with the JAX package's series branches;
+    shared by sim3_exp and sim3_log."""
+    theta2 = (phi * phi).sum(-1)
+    theta = torch.sqrt(theta2 + _EPS * _EPS)
+    W = skew(phi)
+    WW = W @ W
+    sig2 = sigma * sigma
+    small_sig = sigma.abs() < 1e-5
+    small_th = theta2 < 1e-8
+    A = torch.where(small_sig, 1.0 + sigma / 2.0 + sig2 / 6.0, (s - 1.0) / (sigma + _EPS))
+    denom = sig2 + theta2 + _EPS
+    sin_t, cos_t = torch.sin(theta), torch.cos(theta)
+    B_gen = (s * sin_t * sigma + (1.0 - s * cos_t) * theta) / (theta * denom)
+    B_theta0 = torch.where(small_sig, 0.5 + sigma / 3.0,
+                           (s * (sigma - 1.0) + 1.0) / (sig2 + _EPS))
+    B = torch.where(small_th, B_theta0, B_gen)
+    C_gen = (A - ((s * cos_t - 1.0) * sigma + s * sin_t * theta) / denom) / (theta2 + _EPS)
+    C_theta0 = torch.where(small_sig, 1.0 / 6.0 + sigma / 8.0,
+                           A - (s * (1 + sigma) - 1 - sigma * s) / (sig2 + _EPS))
+    C = torch.where(small_th, torch.clamp_min(C_theta0, 1.0 / 6.0), C_gen)
+    eye = _eye(3, phi, W.shape[:-2])
+    return A[..., None, None] * eye + B[..., None, None] * W + C[..., None, None] * WW
+
+
+def sim3_exp(xi: torch.Tensor) -> torch.Tensor:
+    """[..., 7] tangent [rho, phi, sigma] -> packed Sim3 [..., 8]."""
+    rho, phi, sigma = xi[..., :3], xi[..., 3:6], xi[..., 6]
+    s = torch.exp(sigma)
+    t = (_sim3_V(sigma, s, phi) @ rho[..., None])[..., 0]
+    return sim3_make(s, so3_exp(phi), t)
+
+
+def _solve3(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched 3x3 solve by the adjugate (no pivoting, no error check, so no
+    host sync; also differentiable under ``torch.func``)."""
+    a00, a01, a02 = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
+    a10, a11, a12 = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
+    a20, a21, a22 = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
+    c00 = a11 * a22 - a12 * a21
+    c01 = a02 * a21 - a01 * a22
+    c02 = a01 * a12 - a02 * a11
+    c10 = a12 * a20 - a10 * a22
+    c11 = a00 * a22 - a02 * a20
+    c12 = a02 * a10 - a00 * a12
+    c20 = a10 * a21 - a11 * a20
+    c21 = a01 * a20 - a00 * a21
+    c22 = a00 * a11 - a01 * a10
+    det = a00 * c00 + a01 * c10 + a02 * c20
+    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
+    return torch.stack([c00 * b0 + c01 * b1 + c02 * b2,
+                        c10 * b0 + c11 * b1 + c12 * b2,
+                        c20 * b0 + c21 * b1 + c22 * b2], -1) / det[..., None]
+
+
+def sim3_log(S: torch.Tensor) -> torch.Tensor:
+    """Packed Sim3 [..., 8] -> [..., 7] tangent (inverse of sim3_exp's V)."""
+    s, R, t = sim3_parts(S)
+    sigma = torch.log(s)
+    phi = so3_log(R)
+    rho = _solve3(_sim3_V(sigma, s, phi), t)
+    return torch.cat([rho, phi, sigma[..., None]], dim=-1)
+
+
+def umeyama_alignment(src: torch.Tensor, dst: torch.Tensor, mask: torch.Tensor | None = None,
+                      with_scale: bool = True):
+    """Closed-form Sim3/SE3 alignment dst ~ s R src + t (Umeyama / Horn).
+
+    src, dst [N, 3]; mask [N] bool. Returns (s, R [3,3], t [3]). A reflection
+    is fixed through det(U) det(Vt), as the JAX package does; the SVD's free
+    signs of singular-vector pairs cancel in U S Vt."""
+    if mask is None:
+        mask = torch.ones(src.shape[:-1], dtype=torch.bool, device=src.device)
+    w = mask.to(src.dtype)
+    n = w.sum() + _EPS
+    mu_s = (src * w[..., None]).sum(0) / n
+    mu_d = (dst * w[..., None]).sum(0) / n
+    sc = (src - mu_s) * w[..., None]
+    dc = (dst - mu_d) * w[..., None]
+    cov = dc.T @ (src - mu_s) / n
+    U, D, Vt = torch.linalg.svd(cov)
+    det = torch.linalg.det(U) * torch.linalg.det(Vt)
+    diag = torch.stack([torch.ones_like(det), torch.ones_like(det),
+                        torch.where(det < 0, -1.0, 1.0)])
+    R = U @ (diag[:, None] * Vt)
+    var_s = (sc * (src - mu_s)).sum() / n
+    if with_scale:
+        s = (D * diag).sum() / (var_s + _EPS)
+    else:
+        s = torch.ones((), dtype=src.dtype, device=src.device)
+    t = mu_d - s * R @ mu_s
+    return s, R, t
 
 
 def triangulate_dlt(P1, P2, uv1, uv2) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""Batched hypothesize-and-verify two-view initialization (port of
-``two_view_init`` and its helpers from orbslamm_tpu/ops/ransac.py).
+"""Batched hypothesize-and-verify solvers (port of orbslamm_tpu/ops/ransac.py):
+two-view initialization (8-point F), PnP (6-point DLT) for relocalization,
+and Sim3 (3-point Horn) for loop closing.
 
 Every hypothesis is solved and scored in parallel; argmax picks the winner.
 Hypotheses are drawn with ``torch.multinomial`` on a caller-owned
@@ -52,9 +53,15 @@ def _normalize_2d(xy, valid):
 
 
 def _eight_point(xy1n, xy2n, idx):
-    """Batched 8-point: idx [H,8] -> F [H,3,3] (normalized coords)."""
-    p1 = xy1n[idx]
-    p2 = xy2n[idx]
+    """Batched 8-point: idx [H,8] -> F [H,3,3] (normalized coords).
+
+    Both SVDs run in float64 and F comes back in float32: on the card the
+    batched float32 SVD of the [8, 9] systems of a low-parallax pair loses
+    digits of the null vector (F off by up to 1.5 % and hypothesis scores
+    by hundreds against the JAX package on the same inputs, NVIDIA H100);
+    in float64 the null vector is exact to float32 on either device."""
+    p1 = xy1n[idx].double()
+    p2 = xy2n[idx].double()
     u1, v1 = p1[..., 0], p1[..., 1]
     u2, v2 = p2[..., 0], p2[..., 1]
     ones = torch.ones_like(u1)
@@ -63,7 +70,7 @@ def _eight_point(xy1n, xy2n, idx):
     F = Vt[..., 8, :].reshape(-1, 3, 3)
     U, S, Vt2 = torch.linalg.svd(F)
     S = torch.cat([S[..., :2], torch.zeros_like(S[..., 2:])], dim=-1)
-    return U @ (S[..., None] * Vt2)
+    return (U @ (S[..., None] * Vt2)).to(xy1n.dtype)
 
 
 def _epipolar_score(F, xy1, xy2, valid, sigma: float):
@@ -176,3 +183,127 @@ def two_view_init(xy1, xy2, valid, K, generator: torch.Generator | None = None,
                & (second.to(torch.float32) < 0.75 * nb) & parallax_ok)
     return InitResult(success=success, T21=geo.rt_to_T(R, t), points1=X,
                       inliers=good, n_inliers=n_best.to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# Absolute pose (PnP) RANSAC — relocalization
+# ---------------------------------------------------------------------------
+
+class PnPResult(NamedTuple):
+    success: torch.Tensor
+    T_cw: torch.Tensor  # [4,4]
+    inliers: torch.Tensor  # [N]
+    n_inliers: torch.Tensor
+
+
+def _orthogonalize(M):
+    """M = s R with R in SO(3): (R, mean singular value with the reflection
+    folded in)."""
+    U, S, Vt = torch.linalg.svd(M)
+    det = torch.linalg.det(U @ Vt)
+    D = torch.stack([torch.ones_like(det), torch.ones_like(det), det], -1)
+    return U @ (D[..., None] * Vt), (S * D).sum(-1) / 3.0
+
+
+def _dlt_pose(pts_w, uv_n, idx):
+    """Batched 6-point DLT camera pose from K-normalized image coords.
+
+    pts_w [N,3], uv_n [N,2], idx [H,6] -> R [H,3,3], t [H,3]. The null
+    vector's sign is free: as in the JAX package, the pose is taken from it
+    as it comes, and redone from its negation where more than 3 of the 6
+    points would lie behind the camera, so either sign gives one pose."""
+    P = pts_w[idx]  # [H,6,3]
+    u = uv_n[idx][..., 0]
+    v = uv_n[idx][..., 1]
+    Ph = torch.cat([P, torch.ones(P.shape[:-1] + (1,), dtype=P.dtype, device=P.device)], -1)
+    zeros = torch.zeros_like(Ph)
+    r1 = torch.cat([Ph, zeros, -u[..., None] * Ph], -1)
+    r2 = torch.cat([zeros, Ph, -v[..., None] * Ph], -1)
+    A = torch.cat([r1, r2], dim=-2)  # [H,12,12]
+    # the null vector in float64, as in _eight_point
+    _, _, Vt = torch.linalg.svd(A.double())
+    p = Vt[..., 11, :].reshape(-1, 3, 4).to(P.dtype)
+    M = p[..., :3]
+    R, scale = _orthogonalize(M)
+    t = p[..., 3] / scale[..., None]
+    pc = torch.einsum("hij,hkj->hki", R, P) + t[:, None, :]
+    flip = (pc[..., 2] < 0).sum(-1) > 3
+    sgn = torch.where(flip, -1.0, 1.0)[..., None]
+    R, scale2 = _orthogonalize(M * sgn[..., None])
+    t = (p[..., 3] * sgn) / scale2[..., None]
+    return R, t
+
+
+def pnp_ransac(pts_w, uv, valid, K, generator: torch.Generator | None = None,
+               n_hyp: int = 128, sigma: float = 1.0, chi2_th: float = 5.991,
+               min_inliers: int = 10, idx: torch.Tensor | None = None) -> PnPResult:
+    """Robust absolute pose from 2D-3D matches (reference PnPsolver usage in
+    Tracking::Relocalization). ``idx`` [n_hyp, 6] overrides the draw."""
+    fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
+    uv_n = torch.stack([(uv[:, 0] - cx) / fx, (uv[:, 1] - cy) / fy], -1)
+    if idx is None:
+        idx = _sample_indices(generator, valid, n_hyp, 6)
+    R, t = _dlt_pose(pts_w, uv_n, idx.long())
+    pc = torch.einsum("hij,nj->hni", R, pts_w) + t[:, None, :]
+    chi2 = ((geo.project(K, pc) - uv[None]) ** 2).sum(-1) / (sigma * sigma)
+    inl = (chi2 < chi2_th) & (pc[..., 2] > 0) & valid[None, :]
+    counts = inl.sum(-1)
+    best = torch.argmax(counts)
+    n = counts[best]
+    return PnPResult(success=n >= min_inliers, T_cw=geo.rt_to_T(R[best], t[best]),
+                     inliers=inl[best], n_inliers=n.to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# Sim3 RANSAC — loop closing
+# ---------------------------------------------------------------------------
+
+class Sim3Result(NamedTuple):
+    success: torch.Tensor
+    S21: torch.Tensor  # packed sim3 [8]: maps frame-1 3D points to frame-2
+    inliers: torch.Tensor
+    n_inliers: torch.Tensor
+
+
+def _horn_3pt(src, dst):
+    """Batched minimal Horn: src, dst [H,3,3] -> (s [H], R [H,3,3], t [H,3]).
+    The reflection is fixed through det(U Vt), as in the JAX package."""
+    mu_s = src.mean(-2, keepdim=True)
+    mu_d = dst.mean(-2, keepdim=True)
+    sc = src - mu_s
+    dc = dst - mu_d
+    cov = torch.einsum("hni,hnj->hij", dc, sc) / 3.0
+    U, D, Vt = torch.linalg.svd(cov)
+    det = torch.linalg.det(U @ Vt)
+    S = torch.stack([torch.ones_like(det), torch.ones_like(det), det], -1)
+    R = U @ (S[..., None] * Vt)
+    var = torch.einsum("hni,hni->h", sc, sc) / 3.0
+    s = (D * S).sum(-1) / torch.clamp_min(var, 1e-9)
+    t = mu_d[:, 0, :] - s[:, None] * torch.einsum("hij,hj->hi", R, mu_s[:, 0, :])
+    return s, R, t
+
+
+def sim3_ransac(pts1, pts2, valid, K1, K2, generator: torch.Generator | None = None,
+                n_hyp: int = 128, th2_px: float = 9.86, fix_scale: bool = False,
+                min_inliers: int = 20, idx: torch.Tensor | None = None) -> Sim3Result:
+    """Relative Sim3 from matched 3D points in two camera frames (reference
+    Sim3Solver), inliers checked by reprojection in BOTH images. ``idx``
+    [n_hyp, 3] overrides the draw."""
+    if idx is None:
+        idx = _sample_indices(generator, valid, n_hyp, 3)
+    idx = idx.long()
+    s, R, t = _horn_3pt(pts1[idx], pts2[idx])
+    if fix_scale:
+        s = torch.ones_like(s)
+    p12 = s[:, None, None] * torch.einsum("hij,nj->hni", R, pts1) + t[:, None, :]
+    e2 = ((geo.project(K2, p12) - geo.project(K2, pts2)[None]) ** 2).sum(-1)
+    sinv = 1.0 / torch.clamp_min(s, 1e-9)
+    p21 = sinv[:, None, None] * torch.einsum("hij,hnj->hni", R.transpose(-1, -2),
+                                             pts2[None] - t[:, None, :])
+    e1 = ((geo.project(K1, p21) - geo.project(K1, pts1)[None]) ** 2).sum(-1)
+    inl = (e1 < th2_px) & (e2 < th2_px) & valid[None, :]
+    counts = inl.sum(-1)
+    best = torch.argmax(counts)
+    n = counts[best]
+    return Sim3Result(success=n >= min_inliers, S21=geo.sim3_make(s[best], R[best], t[best]),
+                      inliers=inl[best], n_inliers=n.to(torch.int32))

@@ -5,7 +5,9 @@ a ``StageTimer`` is active also a synchronized wall clock. The timer drains
 the device at each stage's start and end, so a stage's time holds the device
 work it launched; nested stages (``ba.pose_optimize`` inside
 ``track.local_map``) each report their inclusive time. With no timer active
-a stage costs one profiler range.
+a stage costs one profiler range. A timer made with ``prefixes`` times only
+the stages whose first dotted part is one of them (``"loop"`` takes
+``loop.verify``), so the rest of the path runs without the extra drains.
 """
 
 from __future__ import annotations
@@ -24,10 +26,14 @@ class StageTimer:
     """Per-stage call counts and synchronized wall seconds while active
     (``with StageTimer(device) as t: ...``; then ``t.seconds``, ``t.calls``)."""
 
-    def __init__(self, device):
+    def __init__(self, device, prefixes: tuple[str, ...] | None = None):
         self.device = torch.device(device)
+        self.prefixes = prefixes
         self.seconds: dict[str, float] = defaultdict(float)
         self.calls: dict[str, int] = defaultdict(int)
+
+    def times(self, name: str) -> bool:
+        return self.prefixes is None or name.split(".")[0] in self.prefixes
 
     def sync(self):
         if self.device.type == "cuda":
@@ -47,7 +53,7 @@ class StageTimer:
 def stage(name: str):
     timer = _timer
     with record_function(name):
-        if timer is None:
+        if timer is None or not timer.times(name):
             yield
             return
         timer.sync()

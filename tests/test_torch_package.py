@@ -1,7 +1,7 @@
 """Package-level checks of orbslamm_tpu_torch: it never imports jax, its copies
 of the JAX package's numpy generators are exact, its converters carry a map
 across both ways, the CPU matcher never launches the CUDA kernel, and paths
-the slice does not have are refused rather than skipped."""
+the port does not have yet are refused rather than skipped."""
 
 import dataclasses
 import subprocess
@@ -43,8 +43,9 @@ def test_port_never_imports_jax():
         torch.set_num_threads(2)
         import orbslamm_tpu_torch
         from orbslamm_tpu_torch import convert
-        from orbslamm_tpu_torch.models import fused, local_mapping, map_state, system, tracking
-        from orbslamm_tpu_torch.ops import ba, geometry, matching, orb, ransac
+        from orbslamm_tpu_torch.models import (fused, local_mapping, loop_closing, map_state,
+                                               system, tracking)
+        from orbslamm_tpu_torch.ops import ba, bow, geometry, matching, orb, ransac
         from orbslamm_tpu_torch.ops.cuda import hamming
         from orbslamm_tpu_torch.utils import trace
         from orbslamm_tpu.io.synthetic import make_sequence
@@ -163,24 +164,66 @@ def test_track_state_converts_both_ways():
         assert np.array_equal(np.asarray(a), np.asarray(b))
 
 
+def test_vocabulary_and_frame_summary_convert_both_ways():
+    """The vocabulary file as the JAX package loads it, and a chunk summary
+    with its loop-scan fields, carried to the port and back, bit-equal."""
+    from orbslamm_tpu.ops import bow as jbow
+
+    voc_j = jbow.load_vocabulary_npz(REPO / "orbslamm_tpu" / "data" / "vocab_10x4.npz")
+    voc_t = convert.vocabulary_from_numpy(voc_j, device="cpu")
+    assert (voc_t.branching, voc_t.depth, voc_t.n_words) == (10, 4, 10 ** 4)
+    d = convert.vocabulary_to_numpy(voc_t)
+    back = jbow.Vocabulary(**{k: (v if k in ("branching", "depth") or v is None
+                                  else jnp.asarray(v)) for k, v in d.items()})
+    for a, b in ((back.nodes, voc_j.nodes), (back.idf, voc_j.idf),
+                 (back.node_valid, voc_j.node_valid)):
+        assert (a is None and b is None) or np.array_equal(np.asarray(a), np.asarray(b))
+    K = CFG.capacity.max_keyframes
+    s_j = jfused.FrameSummary(
+        T_cw=jnp.eye(4)[None].repeat(8, 0), n_inliers=jnp.arange(8, dtype=jnp.int32),
+        tracking_ok=jnp.ones(8, bool), new_kf=jnp.arange(8) % 3 == 0,
+        kf_slot=jnp.arange(8, dtype=jnp.int32), ref_slot=jnp.zeros(8, jnp.int32),
+        T_rel=jnp.eye(4)[None].repeat(8, 0),
+        loop_scores=jnp.linspace(-1.0, 1.0, 8 * K).reshape(8, K),
+        loop_min_score=jnp.full(8, 0.05))
+    s_t = convert.frame_summary_from_numpy(_np(s_j), device="cpu")
+    assert s_t.loop_scores.shape == (8, K) and s_t.new_kf.dtype == torch.bool
+    s_back = jfused.FrameSummary(**{k: jnp.asarray(v)
+                                    for k, v in convert.frame_summary_to_numpy(s_t).items()})
+    for a, b in zip(s_back, s_j):
+        assert np.array_equal(np.asarray(a), np.asarray(b))
+
+
 def test_paths_the_slice_lacks_are_refused():
-    with pytest.raises(NotImplementedError, match="step 9"):
-        MonocularSession(dataclasses.replace(CFG, vocabulary_path="voc.npz"), device="cpu")
-    with pytest.raises(NotImplementedError, match="step 13"):
-        MonocularSession(dataclasses.replace(CFG, sensor="stereo"), device="cpu")
+    # a file vocabulary loads, and localization mode works on top of it
+    vocab = REPO / "orbslamm_tpu" / "data" / "vocab_10x4.npz"
+    sess = MonocularSession(dataclasses.replace(CFG, vocabulary_path=str(vocab)), device="cpu")
+    mc = sess.tracker.mapctx
+    assert mc.voc.n_words == 10 ** 4 and tuple(mc.kf_bow.shape) == (8, 10 ** 4)
+    sess.activate_localization_mode()
+    assert sess.tracker.localization_only
+    sess.deactivate_localization_mode()
+    assert not sess.tracker.localization_only
+    # on-device vocabulary training: loop closing on, no vocabulary file,
+    # once the map holds 4 keyframes
     sess = MonocularSession(CFG, device="cpu")
-    with pytest.raises(NotImplementedError, match="step 11"):
-        sess.activate_localization_mode()
-    # loop closing still on once the map holds 4 keyframes: the JAX package
-    # would train a vocabulary here
     sess.tracker.mapctx.n_kf = 4
     img = np.zeros((CAM.height, CAM.width), np.uint8)
-    with pytest.raises(NotImplementedError, match="step 9"):
+    with pytest.raises(NotImplementedError, match="step 9b"):
         sess.process_frame(img, 0.0)
+    with pytest.raises(NotImplementedError, match="step 9b"):
+        sess.activate_localization_mode()
     sess.enable_loop_closing = False
     sess.tracker.mapctx.n_kf = 0
     assert sess.process_frame(img, 0.0).state == "NOT_INITIALIZED"
-    # a loss the young-map reset does not cover needs relocalization
-    sess.tracker.state = TrackingState.LOST
-    with pytest.raises(NotImplementedError, match="step 11"):
-        sess.process_frame(img, 1.0)
+    # stereo and RGB-D
+    with pytest.raises(NotImplementedError, match="step 13"):
+        MonocularSession(dataclasses.replace(CFG, sensor="stereo"), device="cpu")
+    # the multi-map entry points
+    from orbslamm_tpu_torch.models import loop_closing
+    with pytest.raises(NotImplementedError, match="step 12"):
+        sess.tracker.adopt_merged_map(None, None, None)
+    for fn in (loop_closing.merge_scan_scores, loop_closing.batched_merge_scan_scores,
+               loop_closing.compute_loop_sim3_cross):
+        with pytest.raises(NotImplementedError, match="step 12"):
+            fn()
