@@ -9,10 +9,16 @@ non-zero and no phase failure is caught:
 2. building the hand-written matcher kernel (csrc/hamming.cu) with nvcc;
 3. the kernel against its plain torch version on the card: window mode at
    the main path's shapes 2048x2048 (motion model), 2048x4096 (local map)
-   and 2048x8192 (fuse), epipolar mode at 2048x2048 (triangulation), and a
-   ragged 1000x777, an all-invalid-columns and a duplicate-descriptor case.
+   and 2048x8192 (fuse), epipolar mode at 2048x2048 (triangulation), a
+   ragged 1000x777, an all-invalid-columns and a duplicate-descriptor case,
+   and the tile edges: 2047x4097, 17x9, 1x1, and duplicates and equal
+   distances straddling the kernel's 32-row and 128-column tiles.
    Tolerance: the tables must be equal (exact) on live entries, and masked
-   entries must stay above 256 in both. Median times from CUDA events;
+   entries must stay above 256 in both. At the main path's shapes: the
+   call's median time from CUDA events (wrapper included), the kernels'
+   own device time from torch.profiler (which must show no device work but
+   the matcher's kernels), the bound, and ``torch._int_mm`` of the 0/1 bit
+   matrices as a partial yardstick (the distance product alone);
 4. the main path: ``MonocularSession(cfg, device="cuda")`` at bench.py's
    single-stream size (640x480, 1000 features, 8 levels, 2048 keypoints,
    2000 init features, 128 keyframes, 8192 landmarks) on bench.py's rendered
@@ -23,7 +29,8 @@ non-zero and no phase failure is caught:
    below 0.5 m (a catastrophe guard);
 5. two more chunks: one with a synchronized wall clock per stage (the
    split of a chunk's time), one under ``torch.profiler`` for the device's
-   busy time;
+   busy time; in that chunk every device operation launched inside a
+   ``matching.match_tables`` range must be one of the matcher's kernels;
 6. the loop path: the same configuration with bench.py's vocabulary file
    (``orbslamm_tpu/data/vocab_10x4.npz``) and loop closing on, on the
    out-and-back sequence: BoW rows, loop scans and loop detection inside
@@ -36,10 +43,10 @@ non-zero and no phase failure is caught:
    launches per tracked frame, and times each keyframe-rate event.
 
 The last line is the JSON contract line; the line before it holds the
-kernels' record. Needs the rest of the repository beside it: the port
-package and the numpy-only config, synthetic-sequence and ATE modules of
-the reference package (``orbslamm_tpu.utils.config``,
-``orbslamm_tpu.io.synthetic``, ``orbslamm_tpu.eval.ate``; none imports jax).
+kernels' record. Needs the port package beside it (its own config,
+synthetic-sequence and ATE modules included) and the vocabulary file
+``orbslamm_tpu/data/vocab_10x4.npz``, which it reads as data; it imports
+nothing of jax or of the JAX package.
 """
 
 from __future__ import annotations
@@ -76,12 +83,23 @@ INIT_WITHIN = 12
 LOOP_FRAMES = 120
 LOOP_AT = 104
 RELOC_FRAMES = (25, 35, 45)
-KERNEL_SHAPES = [  # (name, N, M, mode, radius scale)
-    ("motion_model", 2048, 2048, "window", 15.0),
-    ("local_map", 2048, 4096, "window", 4.0),
-    ("fuse", 2048, 8192, "window", 3.0),
-    ("triangulate", 2048, 2048, "epipolar", 0.0),
+KERNEL_SHAPES = [  # (name, N, M, mode, radius scale, level_b dtype as the path passes it)
+    ("motion_model", 2048, 2048, "window", 15.0, "int32"),
+    ("local_map", 2048, 4096, "window", 4.0, "float32"),
+    ("fuse", 2048, 8192, "window", 3.0, "float32"),
+    ("triangulate", 2048, 2048, "epipolar", 0.0, "int32"),
 ]
+# the card's published peaks (NVIDIA H100 SXM data sheet, 700 W): dense int8
+# tensor-core operations per second and device-memory bytes per second
+INT8_OPS_PER_S = 1.979e15
+HBM_BYTES_PER_S = 3.35e12
+# 1-bit AND + popcount operations per second on the tensor cores: the data
+# sheet gives no rate; mma.sync.m16n8k256.b1.and.popc issues at the int8
+# m16n8k32's rate on this card and does 8 times the bit products per
+# instruction (PERF.md, Findings), so 8 x the int8 peak
+BIT_OPS_PER_S = 8 * INT8_OPS_PER_S
+# the matcher's kernels (csrc/hamming.cu), as the profiler names them
+MATCHER_KERNELS = ("hamming_tiles_kernel", "hamming_finalize_kernel")
 # the port's stage names (orbslamm_tpu_torch.utils.trace.stage) start so
 STAGE_PREFIXES = ("orb", "track", "ba", "matching", "mapping", "bow", "loop", "gba", "reloc")
 # the keyframe-rate events of the loop path, timed per call
@@ -97,7 +115,7 @@ def bench_cfg():
     landmarks and loses tracking on the next frame, every time, in the JAX
     package (run through JAX's CUDA backend on an H100) as in the port; see
     PERF.md."""
-    from orbslamm_tpu.utils.config import (
+    from orbslamm_tpu_torch.utils.config import (
         CameraConfig, CapacityConfig, LoopConfig, OrbConfig, SlamConfig,
         TrackingConfig,
     )
@@ -115,13 +133,24 @@ def bench_cfg():
 
 
 def _case(torch, n, m, seed, device, mode="window", radius=15.0, dup=False,
-          all_invalid=False):
+          all_invalid=False, ties=False, level_b_dtype="int32"):
     """Random matcher inputs: descriptors, validity, 640x480 positions,
-    8 octaves, per-column windows radius * 1.2^level or epipolar lines."""
+    8 octaves, per-column windows radius * 1.2^level or epipolar lines.
+    Levels are int32 for A and ``level_b_dtype`` for B (the local-map and
+    fuse searches pass a predicted level as float32).
+    ``ties``: descriptors from a 4-letter byte alphabet (distances repeat),
+    and equal pairs on both sides of the kernel's tile edges: rows 31/32
+    and 63/64 copy column 5, columns 127/128 and 255/256 copy row 7."""
     g = np.random.default_rng(seed)
     t = lambda a, **kw: torch.as_tensor(a, device=device, **kw)  # noqa: E731
-    da = t(g.integers(0, 256, (n, 32), dtype=np.uint8))
-    db = t(g.integers(0, 256, (m, 32), dtype=np.uint8))
+    if ties:
+        da = t(g.choice(np.array([0, 1, 3, 255], np.uint8), (n, 32)))
+        db = t(g.choice(np.array([0, 1, 3, 255], np.uint8), (m, 32)))
+        da[31] = da[32] = da[63] = da[64] = db[5]
+        db[127] = db[128] = db[255] = db[256] = da[7]
+    else:
+        da = t(g.integers(0, 256, (n, 32), dtype=np.uint8))
+        db = t(g.integers(0, 256, (m, 32), dtype=np.uint8))
     if dup:
         db[1] = da[0]
         db[m - 1] = da[0]
@@ -132,13 +161,20 @@ def _case(torch, n, m, seed, device, mode="window", radius=15.0, dup=False,
     if all_invalid:
         vb[:] = False
     lb = g.integers(0, 8, m)
+    la = g.integers(0, 8, n)
+    xy_a = g.uniform(0, [640, 480], (n, 2)).astype(np.float32)
+    xy_b = g.uniform(0, [640, 480], (m, 2)).astype(np.float32)
+    if ties:
+        va[[7, 31, 32, 63, 64]] = vb[[5, 127, 128, 255, 256]] = True
+        la[[31, 32, 63, 64]], lb[[127, 128, 255, 256]] = lb[5], la[7]
+        xy_a[[31, 32, 63, 64]], xy_b[[127, 128, 255, 256]] = xy_b[5], xy_a[7]
     kw = dict(
-        xy_b=t(g.uniform(0, [640, 480], (m, 2)).astype(np.float32)),
-        level_a=t(g.integers(0, 8, n), dtype=torch.int32),
-        level_b=t(lb, dtype=torch.int32), lvl_lo=-2.0, lvl_hi=1.0,
+        xy_b=t(xy_b),
+        level_a=t(la, dtype=torch.int32),
+        level_b=t(lb, dtype=getattr(torch, level_b_dtype)), lvl_lo=-2.0, lvl_hi=1.0,
     )
     if mode == "window":
-        kw.update(xy_a=t(g.uniform(0, [640, 480], (n, 2)).astype(np.float32)),
+        kw.update(xy_a=t(xy_a),
                   radius_b=t((radius * 1.2 ** lb).astype(np.float32)),
                   use_window=True)
     elif mode == "epipolar":
@@ -190,17 +226,82 @@ def _median_ms(torch, fn, reps=20):
     return float(np.median(times))
 
 
+def is_matcher(name: str) -> bool:
+    return any(k in name for k in MATCHER_KERNELS)
+
+
+def device_us(torch, fn, reps=20, own=is_matcher):
+    """Profile ``reps`` calls of ``fn`` (after a warm call). Returns, per
+    call and in microseconds, the device time of the operations ``own``
+    names (the matcher's kernels), of all device operations, and of each
+    device operation name (its median duration times its launches a call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans: dict[str, list[float]] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            spans.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    if not spans:
+        raise AssertionError("the profiler recorded no device time")
+    per_call = {k: float(np.median(v)) * len(v) / reps for k, v in spans.items()}
+    mine = sum(v for k, v in per_call.items() if own(k))
+    return mine, sum(per_call.values()), per_call
+
+
+def library_us(torch, args):
+    """``torch._int_mm`` of the 0/1 bit matrices [N, 256] x [256, M]: the
+    distance product alone, as one library call (median of CUDA events).
+    Returns (us or None, why it was refused)."""
+    from orbslamm_tpu_torch.ops.matching import unpack_bits
+
+    a = unpack_bits(args[0]).to(torch.int8)
+    b = unpack_bits(args[1]).to(torch.int8).t()  # [256, M], column-major
+    try:
+        return _median_ms(torch, lambda: torch._int_mm(a, b)) * 1e3, None
+    except RuntimeError as exc:
+        return None, str(exc).splitlines()[0][:200]
+
+
+def bound_us(n, m, args, kw):
+    """The least time the card could take for one call: the larger of the
+    distance product's N M 256 bit ANDs and as many popcount additions at
+    the tensor cores' 1-bit rate and the bytes moved (every input read
+    once, the 12 N + 8 M output bytes written once) at the memory rate.
+    Returns (us, bound_by, bytes)."""
+    tensors = [*args, *(v for v in kw.values() if hasattr(v, "nbytes"))]
+    nbytes = sum(int(t.nbytes) for t in tensors) + 12 * n + 8 * m
+    ops_us = 2.0 * n * m * 256 / BIT_OPS_PER_S * 1e6
+    bytes_us = nbytes / HBM_BYTES_PER_S * 1e6
+    return max(ops_us, bytes_us), ("operations" if ops_us >= bytes_us else "bytes"), nbytes
+
+
 def kernel_phase(torch, ph, device):
     """Kernel vs plain version at every shape; returns (max_abs_err,
     per-shape timings)."""
-    cases = [(name, _case(torch, n, m, i, device, mode, r), (n, m, mode))
-             for i, (name, n, m, mode, r) in enumerate(KERNEL_SHAPES)]
+    cases = [(name, _case(torch, n, m, i, device, mode, r, level_b_dtype=lvl), (n, m, mode))
+             for i, (name, n, m, mode, r, lvl) in enumerate(KERNEL_SHAPES)]
     cases += [
         ("ragged", _case(torch, 1000, 777, 10, device, dup=True), (1000, 777, "window")),
         ("all_invalid_columns", _case(torch, 300, 129, 11, device, all_invalid=True),
          (300, 129, "window")),
         ("duplicate_descriptor", _case(torch, 1000, 777, 12, device, mode="none", dup=True),
          (1000, 777, "none")),
+        ("edge_2047x4097", _case(torch, 2047, 4097, 13, device, radius=4.0),
+         (2047, 4097, "window")),
+        ("edge_17x9", _case(torch, 17, 9, 14, device, radius=200.0, level_b_dtype="float32"),
+         (17, 9, "window")),
+        ("edge_1x1", _case(torch, 1, 1, 15, device, mode="none"), (1, 1, "none")),
+        ("tile_ties", _case(torch, 300, 700, 16, device, mode="none", ties=True),
+         (300, 700, "none")),
+        ("tile_ties_window", _case(torch, 300, 700, 17, device, radius=1e4, ties=True),
+         (300, 700, "window")),
     ]
     err, timings = 0.0, []
     for name, (args, kw), (n, m, mode) in cases:
@@ -213,12 +314,28 @@ def kernel_phase(torch, ph, device):
             raise AssertionError("all-invalid columns produced a live row")
         if name == "duplicate_descriptor" and bool(got.row_second[0] != got.row_best[0]):
             raise AssertionError("a duplicate descriptor must give second == best")
+        if name.startswith("tile_ties"):
+            # rows 31/32 and 63/64 hold column 5's descriptor, columns
+            # 127/128 and 255/256 row 7's: ties across both tile edges
+            if not (bool((got.col_best[5] == 0) & (got.col_arg[5] == 31))
+                    and bool((got.row_best[7] == 0) & (got.row_arg[7] == 127)
+                             & (got.row_second[7] == 0))):
+                raise AssertionError(f"{name}: a tie across a tile edge went wrong")
         err = max(err, e)
         row = {"case": name, "N": n, "M": m, "mode": mode, "max_abs_err": e,
                "live_rows": int((want.row_best <= 256).sum())}
         if name in dict((s[0], 0) for s in KERNEL_SHAPES):
-            row["ms"] = _median_ms(torch, lambda: ph.match_tables(*args, **kw))
+            call = lambda: ph.match_tables(*args, **kw)  # noqa: E731
+            row["call_us"] = _median_ms(torch, call) * 1e3
             row["plain_ms"] = _median_ms(torch, lambda: ph.match_tables_ref(*args, **kw))
+            row["device_us"], _, per_op = device_us(torch, call)
+            foreign = [x for x in per_op if not is_matcher(x)]
+            if foreign:
+                raise AssertionError(f"match_tables launched more than its kernels: {foreign}")
+            row["bound_us"], row["bound_by"], row["bytes"] = bound_us(n, m, args, kw)
+            row["library_us"], refused = library_us(torch, args)
+            if refused:
+                row["library_refused"] = refused
         timings.append(row)
         print("kernel_vs_plain " + json.dumps(row), flush=True)
     torch.cuda.synchronize()
@@ -227,14 +344,15 @@ def kernel_phase(torch, ph, device):
 
 def main_path_phase(torch, ph, device):
     """Initialize, then stream the sequence in chunks of CHUNK."""
-    from orbslamm_tpu.eval.ate import ate_from_poses
-    from orbslamm_tpu.io.synthetic import make_sequence
+    from orbslamm_tpu_torch.eval.ate import ate_from_poses
+    from orbslamm_tpu_torch.io.synthetic import make_sequence
     from orbslamm_tpu_torch.models.system import (
         MonocularSession, TrackingState, resolve_frame_poses,
     )
 
     cfg = bench_cfg()
     ph.launches = 0  # counts from here on are the main path's
+    ph.launches_by_shape.clear()
     sess = seq = None
     for seed in (7, 12):  # as bench.py: retry once if the two-view init fails
         seq = make_sequence(n_frames=SEQ_FRAMES, n_points=2500, cam=cfg.camera,
@@ -259,7 +377,7 @@ def main_path_phase(torch, ph, device):
     print(f"init: seed {seed}, OK after frame {i - 1}, {init_s:.3f} s, "
           f"keyframes {sess.n_kf}", flush=True)
 
-    launches0, frames0 = ph.launches, i
+    launches0, frames0, by_shape0 = ph.launches, i, ph.launches_by_shape.copy()
     end = min(i + N_STREAM, SEQ_FRAMES - 2 * CHUNK)  # two chunks stay for the split
     chunk_s = []
     while i + CHUNK <= end and sess.state == TrackingState.OK:
@@ -272,6 +390,7 @@ def main_path_phase(torch, ph, device):
     post = [f for f in sess.frames if f.frame_id >= frames0]
     n_ok = sum(f.state == "OK" for f in post)
     stream_launches = ph.launches - launches0
+    stream_by_shape = ph.launches_by_shape - by_shape0
     ok_frames = [f for f in sess.frames if f.state == "OK"]
     est = np.stack(resolve_frame_poses(ok_frames))
     gt = seq.poses_cw[[int(round(f.timestamp * cfg.camera.fps)) for f in ok_frames]]
@@ -283,6 +402,9 @@ def main_path_phase(torch, ph, device):
         "fps_steady": float(CHUNK * len(steady) / np.sum(steady)),
         "ate_m": ate, "stream_launches": stream_launches,
         "landmarks": int(sess.map.lm_valid.sum()),
+        "launches_by_shape": _by_shape(ph.launches_by_shape),
+        "stream_launches_by_shape": _by_shape(stream_by_shape),
+        "stream_launches_per_chunk": stream_launches / max(1, len(chunk_s)),
     }
     print("main_path " + json.dumps(result), flush=True)
     print("streamed frames: " + " ".join(f"{f.state[0]}{f.n_inliers}" for f in post),
@@ -296,6 +418,44 @@ def main_path_phase(torch, ph, device):
     if not np.isfinite(ate) or ate >= 0.5:
         raise AssertionError(f"ATE {ate} m")
     return sess, seq, i, result
+
+
+def match_range_ops(prof, stage_name="matching.match_tables"):
+    """The device operations of a profile launched inside ``stage_name``
+    ranges, and the number of such ranges. A device operation shares its
+    correlation id with the runtime call that launched it (``cudaLaunchKernel``,
+    ``cudaMemsetAsync``, ...); that call lies inside a range on the host
+    clock, on the range's thread. Range markers on the device timeline are
+    not operations."""
+    import bisect
+
+    from torch.autograd import DeviceType
+
+    events = prof.profiler.kineto_results.events()
+    host = [e for e in events if e.device_type() == DeviceType.CPU]
+    runtime = {e.correlation_id(): e for e in host if e.name().startswith("cu")}
+    ranges = sorted((e.start_ns(), e.start_ns() + e.duration_ns(), e.start_thread_id())
+                    for e in host if e.name() == stage_name)
+    starts = [r[0] for r in ranges]
+
+    def inside(call):
+        i = bisect.bisect_right(starts, call.start_ns()) - 1
+        return i >= 0 and (call.start_ns() + call.duration_ns() <= ranges[i][1]
+                           and call.start_thread_id() == ranges[i][2])
+
+    names = []
+    for e in events:
+        if e.device_type() != DeviceType.CUDA or e.name() == stage_name:
+            continue
+        call = runtime.get(e.correlation_id())
+        if call is not None and inside(call):
+            names.append(e.name())
+    return names, len(ranges)
+
+
+def _by_shape(counts) -> dict:
+    """``launches_by_shape`` as JSON: {"mode NxM": launches}."""
+    return {f"{mode} {n}x{m}": c for (mode, n, m), c in sorted(counts.items())}
 
 
 def _union_ms(spans) -> float:
@@ -340,12 +500,21 @@ def split_phase(torch, sess, seq, i, chunk_s_median):
     busy_ms = _union_ms((e.time_range.start, e.time_range.end) for e in device_ops)
     if not device_ops:
         raise AssertionError("the profiled chunk recorded no device work")
+    in_match, n_ranges = match_range_ops(prof)
+    foreign = sorted({x for x in in_match if not is_matcher(x)})
+    if n_ranges == 0 or len(in_match) < 2 * n_ranges or foreign:
+        raise AssertionError(f"matching.match_tables ranges: {n_ranges}, device ops in them "
+                             f"{len(in_match)}, not the matcher's: {foreign}")
     out = {
         "timed_chunk_ms": timed_ms,
         "stages": {k: {"calls": timer.calls[k], "ms": v * 1e3}
                    for k, v in timer.seconds.items()},
         "profiled_chunk_device_ops": len(device_ops),
         "profiled_chunk_device_busy_ms": busy_ms,
+        "match_tables_ranges": n_ranges,
+        "match_tables_device_ops": len(in_match),
+        "match_tables_device_ms": sum(e.time_range.elapsed_us() for e in device_ops
+                                      if is_matcher(e.name)) / 1e3,
         # against an unprofiled chunk: the profiler slows the host, not the kernels
         "device_idle_share": max(0.0, 1.0 - busy_ms / (chunk_s_median * 1e3)),
     }
@@ -394,8 +563,8 @@ def loop_path_phase(torch, ph, device):
     boundaries. Last, three blank frames lose tracking and outbound frames
     must relocalize it within 3 frames. Keyframe-rate events are timed per
     call (StageTimer on the LOOP_STAGES only)."""
-    from orbslamm_tpu.eval.ate import ate_from_poses
-    from orbslamm_tpu.io.synthetic import make_sequence
+    from orbslamm_tpu_torch.eval.ate import ate_from_poses
+    from orbslamm_tpu_torch.io.synthetic import make_sequence
     from orbslamm_tpu_torch.models import loop_closing as lc
     from orbslamm_tpu_torch.models.system import (
         MonocularSession, TrackingState, resolve_frame_poses,
@@ -404,6 +573,7 @@ def loop_path_phase(torch, ph, device):
 
     cfg = loop_cfg()
     ph.launches = 0  # counts from here on are the loop path's
+    ph.launches_by_shape.clear()
     with StageTimer(device, prefixes=LOOP_STAGES) as timer:
         seq = make_sequence(n_frames=LOOP_FRAMES, n_points=2500, cam=cfg.camera, seed=LOOP_SEED,
                             motion="outback")
@@ -479,6 +649,7 @@ def loop_path_phase(torch, ph, device):
         "loop_event": loop_event, "gba_slices": mc.gba_slices_run,
         "reloc_states": reloc, "stream_s": stream_s, "fps": n_stream / stream_s,
         "ate_m": ate, "launches": launches,
+        "launches_by_shape": _by_shape(ph.launches_by_shape),
     }
     split = {k: {"calls": timer.calls[k], "ms": v * 1e3, "ms_per_call": v * 1e3 / timer.calls[k]}
              for k, v in sorted(timer.seconds.items())}
@@ -537,6 +708,7 @@ def main() -> int:
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
+    # the local-map shape (2048 x 4096 window) stands for the kernel
     local = next(t for t in timings if t["case"] == "local_map")
     kernels = {"kernels": [{
         "name": "hamming_match_tables",
@@ -545,8 +717,13 @@ def main() -> int:
         "replaces": "orbslamm_tpu/ops/pallas/hamming.py:208",
         "launches": main_launches + loop_result["launches"],
         "max_abs_err": err,
-        "ms": local["ms"],
+        "ms": local["call_us"] / 1e3,
         "plain_ms": local["plain_ms"],
+        "bound_ms": local["bound_us"] / 1e3,
+        "bound_by": local["bound_by"],
+        "library_ms": None if local["library_us"] is None else local["library_us"] / 1e3,
+        "device_us": local["device_us"],
+        "bound_us": local["bound_us"],
     }]}
     print(f"main path: {result['fps_steady']:.2f} fps steady, chunk median "
           f"{result['chunk_s_median']:.4f} s, ATE {result['ate_m']:.4f} m on {smi}",

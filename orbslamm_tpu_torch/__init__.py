@@ -7,9 +7,12 @@ Pallas TPU kernel of the JAX package (the fused masked Hamming matcher) is a
 hand-written CUDA kernel for Hopper, ``csrc/hamming.cu``, bound with ctypes
 in ``ops/cuda/hamming.py``.
 
-This package never imports jax. It reuses the numpy-only modules of the JAX
-package: ``orbslamm_tpu.utils.config``, ``orbslamm_tpu.io.synthetic`` and
-``orbslamm_tpu.eval.ate``.
+This package imports neither jax nor any module of the JAX package. It
+keeps its own copies of the JAX package's numpy-only modules:
+``utils/config.py``, ``io/synthetic.py`` (with a ``fabricate_map`` that builds
+this package's ``MapState``), ``io/trajectory.py`` (the TUM writer) and
+``eval/ate.py``; ``tests/test_torch_package.py`` holds them equal to the
+originals.
 
 The caller always names the device (``empty_map``, ``make_extractor`` and
 ``MonocularSession`` take ``device``); nothing here picks one silently.

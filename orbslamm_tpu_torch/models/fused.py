@@ -18,7 +18,7 @@ from typing import NamedTuple
 
 import torch
 
-from orbslamm_tpu.utils.config import SlamConfig
+from orbslamm_tpu_torch.utils.config import SlamConfig
 from orbslamm_tpu_torch.models import local_mapping as lm_stage
 from orbslamm_tpu_torch.models import loop_closing as lc_stage
 from orbslamm_tpu_torch.models import map_state as ms

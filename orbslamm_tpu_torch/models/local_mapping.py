@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from orbslamm_tpu.utils.config import SlamConfig
+from orbslamm_tpu_torch.utils.config import SlamConfig
 from orbslamm_tpu_torch.models import map_state as ms
 from orbslamm_tpu_torch.ops import ba, geometry as geo, matching
 from orbslamm_tpu_torch.ops.matching import _top_k

@@ -25,7 +25,7 @@ from typing import NamedTuple
 
 import torch
 
-from orbslamm_tpu.utils.config import SlamConfig
+from orbslamm_tpu_torch.utils.config import SlamConfig
 from orbslamm_tpu_torch.models import map_state as ms
 from orbslamm_tpu_torch.ops import ba, bow, geometry as geo, matching, ransac
 from orbslamm_tpu_torch.ops.matching import _top_k

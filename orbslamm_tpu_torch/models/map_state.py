@@ -17,7 +17,7 @@ from typing import NamedTuple
 
 import torch
 
-from orbslamm_tpu.utils.config import SlamConfig
+from orbslamm_tpu_torch.utils.config import SlamConfig
 from orbslamm_tpu_torch.ops.orb import Features
 
 

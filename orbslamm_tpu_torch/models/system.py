@@ -29,7 +29,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from orbslamm_tpu.utils.config import SlamConfig
+from orbslamm_tpu_torch.utils.config import SlamConfig
 from orbslamm_tpu_torch.models import fused
 from orbslamm_tpu_torch.models import local_mapping as lm_stage
 from orbslamm_tpu_torch.models import loop_closing as lc_stage

@@ -13,7 +13,7 @@ from typing import NamedTuple
 
 import torch
 
-from orbslamm_tpu.utils.config import SlamConfig
+from orbslamm_tpu_torch.utils.config import SlamConfig
 from orbslamm_tpu_torch.models import map_state as ms
 from orbslamm_tpu_torch.models.map_state import MapState
 from orbslamm_tpu_torch.ops import ba, geometry as geo, matching

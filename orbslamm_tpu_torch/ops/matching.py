@@ -145,11 +145,11 @@ def match_epipolar(desc_a, desc_b, valid_a, valid_b, F12, xy_a, xy_b, level_a,
     ORBmatcher.cc:659) through the fused match tables."""
     ones = torch.ones((xy_a.shape[0], 1), dtype=xy_a.dtype, device=xy_a.device)
     lines = torch.cat([xy_a, ones], dim=1) @ F12.T  # [N, 3]
-    sigma2 = (scale ** level_b.to(torch.float32)) ** 2
-    with stage("matching.match_tables"):
+    epi_thr = 3.84 * (scale ** level_b.to(torch.float32)) ** 2
+    with stage("matching.match_tables"):  # the matcher's launches alone
         t = ph.match_tables(
             desc_a, desc_b, valid_a, valid_b, xy_b=xy_b, level_a=level_a,
-            level_b=level_b, lines_a=lines, epi_thr_b=3.84 * sigma2,
+            level_b=level_b, lines_a=lines, epi_thr_b=epi_thr,
             lvl_lo=lvl_lo, lvl_hi=lvl_hi, use_epipolar=True,
         )
     return _finish(valid_a, t.row_arg, t.row_best, t.row_second, max_dist,

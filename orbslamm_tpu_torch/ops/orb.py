@@ -27,7 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from orbslamm_tpu.utils.config import CameraConfig, OrbConfig
+from orbslamm_tpu_torch.utils.config import CameraConfig, OrbConfig
 
 PATCH_R = 20  # covers the rotated pattern (|p|<=13 -> 19) plus rounding
 IC_R = 15  # intensity-centroid circular mask radius (reference PATCH_SIZE 31)

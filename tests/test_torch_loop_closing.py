@@ -30,6 +30,7 @@ from orbslamm_tpu.utils.config import (
     CameraConfig, CapacityConfig, OrbConfig, SlamConfig, TrackingConfig,
 )
 from orbslamm_tpu_torch import convert
+from orbslamm_tpu_torch.io import synthetic as tsynthetic
 from orbslamm_tpu_torch.models import loop_closing as tlc
 from orbslamm_tpu_torch.ops import ba as tba
 from orbslamm_tpu_torch.ops import bow as tbow
@@ -59,8 +60,12 @@ def _jmap(d):
     return jms.MapState(**{k: jnp.asarray(v) for k, v in d.items()})
 
 
-def build_drifted_ring(n_kf=16, n_split=11, drift_scale=1.12, seed=0, per_turn=None):
-    """(JAX MapState, T_gt [K,4,4]); as tests/test_loop_closing.py. With
+def build_drifted_ring(n_kf=16, n_split=11, drift_scale=1.12, seed=0, per_turn=None,
+                       device="cpu"):
+    """(JAX MapState, the port's MapState on ``device``, T_gt [K,4,4]); as
+    tests/test_loop_closing.py. Each package's ``fabricate_map`` builds its
+    own map from the same arrays (the two are equal field for field,
+    tests/test_torch_package.py). With
     ``per_turn`` < ``n_kf`` keyframes the ring goes round more than once and
     segment B's last ``n_kf - per_turn`` keyframes revisit segment A's first
     viewpoints."""
@@ -91,18 +96,18 @@ def build_drifted_ring(n_kf=16, n_split=11, drift_scale=1.12, seed=0, per_turn=N
     mask[:n_split, :n_pts] = True
     mask[n_split:, n_pts:] = True
     refs = np.concatenate([np.zeros(n_pts, np.int32), np.full(n_pts, n_split, np.int32)])
-    m, _ = fabricate_map(CFG, poses, np.concatenate([pts, pts_b.astype(np.float32)]),
-                         np.concatenate([desc, desc]), kf_point_mask=mask, seed=seed,
-                         point_ref_kf=refs)
-    return m, T_gt
+    args = (CFG, poses, np.concatenate([pts, pts_b.astype(np.float32)]),
+            np.concatenate([desc, desc]))
+    kw = dict(kf_point_mask=mask, seed=seed, point_ref_kf=refs)
+    m_j, _ = fabricate_map(*args, **kw)
+    m_t, _ = tsynthetic.fabricate_map(*args, **kw, device=device)
+    return m_j, m_t, T_gt
 
 
 @pytest.fixture(scope="module")
 def ring():
-    m_j, T_gt = build_drifted_ring()
-    m_np = _np(m_j)
-    return dict(m_j=m_j, m_np=m_np, m_t=convert.map_state_from_numpy(m_np._asdict(), device="cpu"),
-                T_gt=T_gt)
+    m_j, m_t, T_gt = build_drifted_ring()
+    return dict(m_j=m_j, m_np=_np(m_j), m_t=m_t, T_gt=T_gt)
 
 
 @pytest.fixture(scope="module")
@@ -593,13 +598,12 @@ def test_try_close_loop_matches_jax(monkeypatch, device):
     from orbslamm_tpu.models import system as jsys
     from orbslamm_tpu_torch.models import system as tsys
 
-    m_j, _ = build_drifted_ring(n_kf=20, per_turn=15.5)
-    m_np = _np(m_j)
-    n_kf = int(m_np.kf_valid.sum())
+    m_j, m_t, _ = build_drifted_ring(n_kf=20, per_turn=15.5, device=device)
+    n_kf = int(np.asarray(m_j.kf_valid).sum())
     mj = jsys.MapContext(CFG, jbow.load_vocabulary_npz(str(VOCAB)))
     mt = tsys.MapContext(CFG, tbow.load_vocabulary_npz(str(VOCAB), device=device), device=device)
     mj.map, mj.n_kf = m_j, n_kf
-    mt.map, mt.n_kf = convert.map_state_from_numpy(m_np._asdict(), device=device), n_kf
+    mt.map, mt.n_kf = m_t, n_kf
     mj.update_bow_rows(list(range(n_kf)))
     mt.update_bow_rows(list(range(n_kf)))
 

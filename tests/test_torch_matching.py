@@ -8,6 +8,8 @@ have to stay above 256 on both sides — the two formulations accumulate
 different penalties by design.
 """
 
+from collections import Counter
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -255,16 +257,153 @@ def test_resolve_duplicates_and_rotation_consistency():
     assert np.array_equal(ct.numpy(), np.asarray(cj))
 
 
+def _tie_case(seed, n, m, row_edges, col_edges):
+    """A case full of ties: descriptors from a 4-letter byte alphabet (so
+    distances repeat), and at every given row edge r two equal rows r-1, r
+    that copy one column (the first columns outside the column pairs, in
+    order), at every column edge c two equal columns c-1, c that copy one
+    row; each pair sits on both sides of its edge, live in every mode."""
+    d = _case(seed, n, m)
+    rng = np.random.default_rng(seed + 100)
+    d["desc_a"] = rng.choice(np.array([0, 1, 3, 255], np.uint8), (n, 32))
+    d["desc_b"] = rng.choice(np.array([0, 1, 3, 255], np.uint8), (m, 32))
+    d["level_a"][:] = d["level_b"][:] = 0
+    pair_rows = {i for r in row_edges for i in (r - 1, r)}
+    pair_cols = {j for c in col_edges for j in (c - 1, c)}
+    free_cols = iter(j for j in range(m) if j not in pair_cols)
+    free_rows = iter(i for i in range(n) if i not in pair_rows)
+    for r, c in zip(row_edges, free_cols):
+        d["desc_a"][r - 1] = d["desc_a"][r] = d["desc_b"][c]
+        d["xy_a"][r - 1] = d["xy_a"][r] = d["xy_b"][c]
+        d["valid_a"][r - 1] = d["valid_a"][r] = d["valid_b"][c] = True
+    for c, r in zip(col_edges, free_rows):
+        d["desc_b"][c - 1] = d["desc_b"][c] = d["desc_a"][r]
+        d["xy_b"][c - 1] = d["xy_b"][c] = d["xy_a"][r]
+        d["valid_b"][c - 1] = d["valid_b"][c] = d["valid_a"][r] = True
+    # epipolar lines through each row's own position: the pairs stay live
+    d["lines_a"] = np.stack([np.ones(n), np.zeros(n), -d["xy_a"][:, 0]], 1).astype(np.float32)
+    return d
+
+
+def _first(d, n, m):
+    """The first n rows and m columns of a case."""
+    a_side = ("desc_a", "valid_a", "xy_a", "level_a", "lines_a")
+    return {k: v[:n] if k in a_side else v[:m] for k, v in d.items()}
+
+
+_NONE, _SHIFT = 0xFFFFFFFF, 23
+
+
+def _keys(best, arg, offset):
+    """Tables of a block -> the kernel's u32 keys (d << 23) | index."""
+    b = best.numpy()
+    live = b <= 256
+    k = (np.where(live, b, 0).astype(np.uint64) << _SHIFT) | (arg.numpy() + offset).astype(np.uint64)
+    return np.where(live, k, _NONE).astype(np.uint64)
+
+
+def _merge_row(k1, s1, k2, s2):
+    """csrc/hamming.cu merge_row: (best key, second) over disjoint columns."""
+    hi = np.maximum(k1, k2)
+    return np.minimum(k1, k2), np.minimum(np.minimum(s1, s2), hi >> _SHIFT)
+
+
+def _decode(key):
+    live = key != _NONE
+    return (np.where(live, key >> _SHIFT, 0).astype(np.float32),
+            np.where(live, key & ((1 << _SHIFT) - 1), 0).astype(np.int32), live)
+
+
+@pytest.mark.parametrize("mode", ["window", "none", "epipolar"])
+@pytest.mark.parametrize("rows,cols", [(8, 7), (5, 11)])
+def test_block_merge_rule_equals_whole_tables(mode, rows, cols):
+    """The kernel's merge rule, on the CPU: match_tables_ref over row and
+    column blocks that do not divide N and M, merged as csrc/hamming.cu
+    merges its partials (row pairs across column blocks, column keys across
+    row blocks, any order), equals match_tables_ref over the whole matrix
+    exactly, masked entries and their zero argmins included. Equal
+    distances and duplicate descriptors straddle the block edges."""
+    n, m = 37, 29
+    d = _tie_case(3, n, m, row_edges=range(rows, n, rows), col_edges=range(cols, m, cols))
+    keys = {"window": WINDOW, "none": BASE, "epipolar": EPI}[mode]
+    kw = dict(lvl_lo=-1.0, lvl_hi=1.0, use_window=mode == "window",
+              use_epipolar=mode == "epipolar")
+    t = _t(d, keys)
+    whole = tph.match_tables_ref(**t, **kw)
+    row_key = np.full(n, _NONE, np.uint64)
+    row_sec = np.full(n, _NONE >> _SHIFT, np.uint64)
+    col_key = np.full(m, _NONE, np.uint64)
+    col_blocks = list(range(0, m, cols))[::-1]  # merge order does not matter
+    for r0 in range(0, n, rows):
+        for c0 in col_blocks:
+            rs, cs = slice(r0, r0 + rows), slice(c0, c0 + cols)
+            part = {k: (v[rs] if k in ("desc_a", "valid_a", "xy_a", "level_a", "lines_a")
+                        else v[cs]) for k, v in t.items()}
+            p = tph.match_tables_ref(**part, **kw)
+            sec = p.row_second.numpy()
+            sec = np.where(sec <= 256, sec, _NONE >> _SHIFT).astype(np.uint64)
+            row_key[rs], row_sec[rs] = _merge_row(row_key[rs], row_sec[rs],
+                                                  _keys(p.row_best, p.row_arg, c0), sec)
+            col_key[cs] = np.minimum(col_key[cs], _keys(p.col_best, p.col_arg, r0))
+    best, arg, live = _decode(row_key)
+    second = np.where(row_sec == _NONE >> _SHIFT, BIG32, row_sec).astype(np.float32)
+    assert np.array_equal(np.where(live, best, BIG32), whole.row_best.numpy())
+    assert np.array_equal(arg, whole.row_arg.numpy())
+    assert np.array_equal(second, whole.row_second.numpy())
+    cbest, carg, clive = _decode(col_key)
+    assert np.array_equal(np.where(clive, cbest, BIG32), whole.col_best.numpy())
+    assert np.array_equal(carg, whole.col_arg.numpy())
+    # the ties are real: duplicates give second == best, and columns whose
+    # best is held by two rows on both sides of a row-block edge go to the
+    # earlier row
+    assert live.sum() > n // 2 and (second[live] == best[live]).any()
+    held = [j for j in range(m) if j not in {i for c in range(cols, m, cols) for i in (c - 1, c)}]
+    held = held[:len(range(rows, n, rows))]
+    assert (whole.col_best.numpy()[held] == 0).all()
+    assert np.array_equal(whole.col_arg.numpy()[held], np.arange(rows, n, rows) - 1)
+
+
+BIG32 = np.float32(tph.BIG)
+
+
+def _float_levels(d, level_a=False, b_shift=0.0):
+    """The case with level_b as float32, as the local-map and fuse
+    searches pass a predicted level (level_a too if ``level_a``); ``b_shift``
+    moves B's levels off the integers."""
+    d = dict(d)
+    d["level_b"] = d["level_b"].astype(np.float32) + np.float32(b_shift)
+    if level_a:
+        d["level_a"] = d["level_a"].astype(np.float32)
+    return d
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_equals_plain_version():
     """The hand-written kernel against match_tables_ref on the card, at the
-    main path's shapes and both modes. Exact on live entries."""
+    main path's shapes and modes, at tile edges (2047 x 4097, 17 x 9,
+    1 x 1) and with duplicates and equal distances straddling the 32-row
+    and 128-column tile edges, with levels as int32 and as float32 (the
+    local-map and fuse dtypes). Equal everywhere, masked entries included;
+    ``launches_by_shape`` counts each call by (mode, N, M)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernel; no CPU/interpret mode)")
-    before = tph.launches
-    for mode, n, m, seed in [("window", 2048, 4096, 0), ("epipolar", 2048, 2048, 1),
-                             ("none", 1000, 777, 2)]:
-        d = _case(seed, n, m)
+    before, by_shape = tph.launches, tph.launches_by_shape.copy()
+    cases = [("window", 2048, 4096, _case(0, 2048, 4096)),
+             ("window", 2048, 2048, _case(3, 2048, 2048)),
+             ("window", 2048, 8192, _case(4, 2048, 8192)),
+             ("epipolar", 2048, 2048, _case(1, 2048, 2048)),
+             ("none", 1000, 777, _case(2, 1000, 777)),
+             ("window", 2047, 4097, _case(5, 2047, 4097)),
+             ("window", 17, 9, _case(6, 17, 9)),
+             ("none", 1, 1, _first(_case(7, 2, 2), 1, 1)),
+             ("none", 300, 700, _tie_case(8, 300, 700, (32, 64, 288), (128, 256, 640))),
+             ("window", 300, 700, _tie_case(9, 300, 700, (32, 96), (128, 384))),
+             ("epipolar", 300, 700, _tie_case(10, 300, 700, (64, 160), (256, 512))),
+             ("window", 2048, 4096, _float_levels(_case(11, 2048, 4096))),
+             ("window", 2048, 8192, _float_levels(_case(12, 2048, 8192))),
+             ("window", 17, 9, _float_levels(_case(13, 17, 9), level_a=True, b_shift=0.5)),
+             ("epipolar", 300, 700, _float_levels(_case(14, 300, 700), level_a=True))]
+    for mode, n, m, d in cases:
         keys = {"window": WINDOW, "none": BASE, "epipolar": EPI}[mode]
         args = {k: torch.as_tensor(v).cuda() for k, v in d.items() if k in keys}
         kw = dict(lvl_lo=-2.0, lvl_hi=1.0, use_window=mode == "window",
@@ -273,5 +412,7 @@ def test_cuda_kernel_equals_plain_version():
         want = tph.match_tables_ref(**args, **kw)
         torch.cuda.synchronize()
         for a, b in zip(got, want):
-            assert torch.equal(a, b)
-    assert tph.launches == before + 3
+            assert a.dtype == b.dtype and torch.equal(a, b), (mode, n, m)
+    assert tph.launches == before + len(cases)
+    added = tph.launches_by_shape - by_shape
+    assert added == Counter((mode, n, m) for mode, n, m, _ in cases)

@@ -1,8 +1,10 @@
-"""Package-level checks of orbslamm_tpu_torch: it never imports jax, its copies
-of the JAX package's numpy generators are exact, its converters carry a map
-across both ways, the CPU matcher never launches the CUDA kernel, and paths
-the port does not have yet are refused rather than skipped."""
+"""Package-level checks of orbslamm_tpu_torch: it imports neither jax nor the
+JAX package, its copies of the JAX package's numpy-only modules (config,
+synthetic sequences, ATE) and generators are exact, its converters carry a
+map across both ways, the CPU matcher never launches the CUDA kernel, and
+paths the port does not have yet are refused rather than skipped."""
 
+import ast
 import dataclasses
 import subprocess
 import sys
@@ -33,9 +35,32 @@ CFG = SlamConfig(camera=CAM, orb=OrbConfig(n_features=120, max_keypoints=256, n_
                  capacity=CapacityConfig(max_keyframes=8, max_landmarks=512))
 
 
+def _foreign(name: str | None) -> bool:
+    return name is not None and any(name == p or name.startswith(p + ".")
+                                    for p in ("jax", "orbslamm_tpu"))
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(REPO)) for p in [*(REPO / "orbslamm_tpu_torch").rglob("*.py"),
+                                       REPO / "chip_smoke.py"]))
+def test_port_sources_import_nothing_of_jax_or_the_jax_package(path):
+    """No ``import jax``, ``from jax``, ``import orbslamm_tpu`` or
+    ``from orbslamm_tpu.`` anywhere in the port's sources or chip_smoke.py,
+    at top level or inside a function."""
+    tree = ast.parse((REPO / path).read_text(), filename=path)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _foreign(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and _foreign(node.module):
+            bad.append(node.module)
+    assert not bad, f"{path} imports {bad}"
+
+
 def test_port_never_imports_jax():
     """A fresh interpreter imports the whole port, runs a few frames of the
-    session on the CPU, and has not loaded jax."""
+    session on the CPU on a sequence from the port's own synthetic module,
+    and has loaded neither jax nor any module of the JAX package."""
     script = textwrap.dedent("""
         import sys
         import numpy as np
@@ -48,10 +73,10 @@ def test_port_never_imports_jax():
         from orbslamm_tpu_torch.ops import ba, bow, geometry, matching, orb, ransac
         from orbslamm_tpu_torch.ops.cuda import hamming
         from orbslamm_tpu_torch.utils import trace
-        from orbslamm_tpu.io.synthetic import make_sequence
-        from orbslamm_tpu.eval import ate
-        from orbslamm_tpu.utils.config import (CameraConfig, CapacityConfig,
-                                               OrbConfig, SlamConfig)
+        from orbslamm_tpu_torch.io.synthetic import make_sequence
+        from orbslamm_tpu_torch.eval import ate
+        from orbslamm_tpu_torch.utils.config import (CameraConfig, CapacityConfig,
+                                                     OrbConfig, SlamConfig)
         cam = CameraConfig(width=160, height=120, fx=130, fy=130, cx=80, cy=60)
         cfg = SlamConfig(camera=cam, orb=OrbConfig(n_features=120, max_keypoints=256,
                                                    n_levels=2),
@@ -61,13 +86,146 @@ def test_port_never_imports_jax():
         sess.enable_loop_closing = False
         recs = [sess.process_frame(seq.images[i], float(seq.timestamps[i])) for i in range(4)]
         assert len(recs) == 4 and hamming.launches == 0
-        assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+        assert ate.ate_from_poses(seq.poses_cw, seq.poses_cw) < 1e-6
+        foreign = sorted(m for m in sys.modules
+                         if m == "jax" or m.startswith("jax.")
+                         or m == "orbslamm_tpu" or m.startswith("orbslamm_tpu."))
+        assert not foreign, foreign
         print("NOJAX_OK")
     """)
     out = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "NOJAX_OK" in out.stdout
+
+
+YAML = """%YAML:1.0
+Camera.fx: 300.5
+Camera.fy: 301.0
+Camera.cx: 159.5
+Camera.cy: 119.5
+Camera.k1: 0.01
+Camera.fps: 20.0
+Camera.RGB: 0
+Camera.width: 320
+Camera.height: 240
+Camera.bf: 40.0
+ThDepth: 35.0
+ORBextractor.nFeatures: 600  # comment
+ORBextractor.scaleFactor: 1.25
+ORBextractor.nLevels: 6
+ORBextractor.iniThFAST: 18
+ORBextractor.minThFAST: 6
+Tracking.pixelNoise: 1.2
+"""
+
+
+def test_config_copy_equals_the_original(tmp_path):
+    """The port's config module: the default SlamConfig, the OpenCV-YAML
+    parser and load_settings (on a default base and on a changed one) give
+    the same fields as the JAX package's, and the copy holds every name."""
+    from orbslamm_tpu.utils import config as jc
+    from orbslamm_tpu_torch.utils import config as tc
+
+    names = ("CameraConfig", "OrbConfig", "MatcherConfig", "TrackingConfig",
+             "MappingConfig", "LoopConfig", "CapacityConfig", "SlamConfig",
+             "load_settings", "_parse_opencv_yaml", "_next_pow2")
+    assert all(hasattr(tc, n) for n in names)
+    assert dataclasses.asdict(tc.SlamConfig()) == dataclasses.asdict(jc.SlamConfig())
+    assert tc._parse_opencv_yaml(YAML) == jc._parse_opencv_yaml(YAML)
+    path = tmp_path / "settings.yaml"
+    path.write_text(YAML)
+    assert dataclasses.asdict(tc.load_settings(path)) == dataclasses.asdict(jc.load_settings(path))
+    base_t = tc.SlamConfig(orb=tc.OrbConfig(max_keypoints=512), sensor="stereo")
+    base_j = jc.SlamConfig(orb=jc.OrbConfig(max_keypoints=512), sensor="stereo")
+    got = tc.load_settings(path, base=base_t)
+    assert dataclasses.asdict(got) == dataclasses.asdict(jc.load_settings(path, base=base_j))
+    assert got.orb.max_keypoints == 1024 and got.camera.K().dtype == np.float32
+    assert [tc._next_pow2(n) for n in (1, 5, 64, 1000)] == [1, 8, 64, 1024]
+
+
+@pytest.mark.parametrize("motion,seed", [("forward", 7), ("forward", 12),
+                                         ("outback", 13), ("outback", 14)])
+def test_synthetic_sequence_copy_equals_the_original(motion, seed):
+    """make_sequence of both packages, array for array, at test size."""
+    from orbslamm_tpu.io import synthetic as js
+    from orbslamm_tpu_torch.io import synthetic as ts
+    from orbslamm_tpu_torch.utils.config import CameraConfig as TCam
+
+    cam_t = TCam(width=160, height=120, fx=130, fy=130, cx=80, cy=60, fps=30)
+    a = ts.make_sequence(n_frames=5, n_points=400, cam=cam_t, seed=seed, motion=motion)
+    b = js.make_sequence(n_frames=5, n_points=400, cam=CAM, seed=seed, motion=motion)
+    for f in dataclasses.fields(b):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        assert (x is None and y is None) or (x.dtype == y.dtype and np.array_equal(x, y)), f.name
+    assert a.images.any()
+
+
+def test_synthetic_helpers_copy_equal_the_originals(tmp_path):
+    """The scene helpers and the TUM export (files byte for byte)."""
+    from orbslamm_tpu.io import synthetic as js
+    from orbslamm_tpu_torch.io import synthetic as ts
+
+    assert np.array_equal(ts.make_landmark_field(300, seed=4), js.make_landmark_field(300, seed=4))
+    assert np.array_equal(ts.make_stamps(50, pool=7, seed=5), js.make_stamps(50, pool=7, seed=5))
+    seq = js.make_sequence(n_frames=3, n_points=300, cam=CAM, seed=2, with_depth=True)
+    pts, T = seq.points_w, seq.poses_cw[1]
+    bright = np.full(len(pts), 200.0, np.float32)
+    assert np.array_equal(ts.render_view(pts, T, CAM, bright), js.render_view(pts, T, CAM, bright))
+    assert np.array_equal(ts.render_depth(pts, T, CAM), js.render_depth(pts, T, CAM))
+    pytest.importorskip("PIL")
+    out_t = ts.export_tum_sequence(seq, tmp_path / "t")
+    out_j = js.export_tum_sequence(seq, tmp_path / "j")
+    names = sorted(p.relative_to(out_j) for p in out_j.rglob("*") if p.is_file())
+    assert names == sorted(p.relative_to(out_t) for p in out_t.rglob("*") if p.is_file())
+    for name in names:
+        assert (out_t / name).read_bytes() == (out_j / name).read_bytes(), name
+
+
+def test_fabricate_map_copy_equals_the_original():
+    """The port's fabricate_map builds, field for field, the map the JAX
+    package's builds from the same arguments (same numpy draws)."""
+    from orbslamm_tpu.io import synthetic as js
+    from orbslamm_tpu_torch.io import synthetic as ts
+
+    rng = np.random.default_rng(21)
+    pts = js.make_landmark_field(200, extent=4.0, seed=21)
+    desc = rng.integers(0, 256, (200, 32), dtype=np.uint8)
+    poses = np.stack([np.eye(4, dtype=np.float32)] * 3)
+    poses[:, 0, 3] = [0.0, -0.3, -0.6]
+    share = rng.random(200) > 0.2
+    kw = dict(frame_ids=np.array([0, 4, 9]), seed=3, share_landmarks=share,
+              point_ref_kf=rng.integers(0, 3, 200).astype(np.int32))
+    m_j, slot_j = js.fabricate_map(CFG, poses, pts, desc, **kw)
+    m_t, slot_t = ts.fabricate_map(CFG, poses, pts, desc, **kw, device="cpu")
+    assert np.array_equal(slot_t, slot_j)
+    got = convert.map_state_to_numpy(m_t)
+    for k in jms.MapState._fields:
+        want = np.asarray(getattr(m_j, k))
+        assert got[k].dtype == want.dtype and np.array_equal(got[k], want), k
+    assert int(m_t.n_kf) == 3 and int(m_t.lm_valid.sum()) == int(share.sum())
+
+
+def test_ate_copy_equals_the_original():
+    """ate_from_poses, ate_rmse (every alignment) and associate of both
+    packages on the same trajectories: equal to the last bit."""
+    from orbslamm_tpu.eval import ate as ja
+    from orbslamm_tpu.io import synthetic as js
+    from orbslamm_tpu_torch.eval import ate as ta
+
+    gt = js.make_sequence(n_frames=12, n_points=300, cam=CAM, seed=5, motion="outback").poses_cw
+    rng = np.random.default_rng(5)
+    est = gt.copy()
+    est[:, :3, 3] = 0.7 * est[:, :3, 3] + rng.normal(0, 0.01, (12, 3))
+    for align in ("sim3", "se3", "none"):
+        assert ta.ate_from_poses(est, gt, align) == ja.ate_from_poses(est, gt, align)
+        assert ta.ate_rmse(est[:, :3, 3], gt[:, :3, 3], align) == \
+            ja.ate_rmse(est[:, :3, 3], gt[:, :3, 3], align)
+    assert ta.ate_from_poses(est[:2], gt[:2]) == float("inf")
+    t_est = np.arange(10) / 30.0 + 0.004
+    t_gt = np.arange(0, 12) / 30.0
+    for a, b in zip(ta.associate(t_est, t_gt), ja.associate(t_est, t_gt)):
+        assert np.array_equal(a, b)
 
 
 def test_copied_pattern_tables_equal_the_originals():
