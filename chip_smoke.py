@@ -31,7 +31,10 @@ non-zero and no phase failure is caught:
    split of a chunk's time), one under ``torch.profiler`` for the device's
    busy time; in that chunk every device operation launched inside a
    ``matching.match_tables`` range must be one of the matcher's kernels;
-6. the loop path: the same configuration with bench.py's vocabulary file
+6. vocabulary training from the main path's final map with the config's
+   default tree (branching 8, depth 3, 6 iterations), on the card and on
+   the CPU: nodes equal, idf within 1e-6;
+7. the loop path: the same configuration with bench.py's vocabulary file
    (``orbslamm_tpu/data/vocab_10x4.npz``) and loop closing on, on the
    out-and-back sequence: BoW rows, loop scans and loop detection inside
    the chunks, the loop events (Sim3 verification, essential-graph
@@ -40,13 +43,24 @@ non-zero and no phase failure is caught:
    blank frames;
    asserts >= 90% tracked frames, a closed loop, >= 2 global-BA slices, a
    finite ATE below 0.5 m, a relocalization within 3 frames and >= 2 kernel
-   launches per tracked frame, and times each keyframe-rate event.
+   launches per tracked frame, and times each keyframe-rate event;
+8. the multi-map path: bench.py's two-robot scenario (``bench_multi``: two
+   robots on overlapping halves of a 440-frame strafe sequence, 120 frames
+   shared) on bench.py's configuration (the loop path's with bench.py's
+   4000 init features), through one
+   ``MultiMapper(cfg, device="cuda")``: each robot initializes, then both
+   are streamed in turn in spans of 4 chunks; the MultiMapper's own scan
+   finds the overlap and merges the maps; one more span, then three blank
+   frames to r1; asserts for each robot >= 90% tracked frames, a merge,
+   both robots on the base map, a merged ATE (both robots' frames under one
+   Sim3) below 0.6 m, a new map on loss with the merged map kept, and >= 2
+   kernel launches per tracked frame, and times the merge events.
 
-The last line is the JSON contract line; the line before it holds the
-kernels' record. Needs the port package beside it (its own config,
-synthetic-sequence and ATE modules included) and the vocabulary file
-``orbslamm_tpu/data/vocab_10x4.npz``, which it reads as data; it imports
-nothing of jax or of the JAX package.
+Each phase prints its wall time. The last line is the JSON contract line;
+the line before it holds the kernels' record. Needs the port package beside
+it (its own config, synthetic-sequence and ATE modules included) and the
+vocabulary file ``orbslamm_tpu/data/vocab_10x4.npz``, which it reads as
+data; it imports nothing of jax or of the JAX package.
 """
 
 from __future__ import annotations
@@ -83,6 +97,15 @@ INIT_WITHIN = 12
 LOOP_FRAMES = 120
 LOOP_AT = 104
 RELOC_FRAMES = (25, 35, 45)
+# the multi-map path: bench.py's bench_multi scenario (two robots on
+# overlapping halves of one strafe sequence, MM_OVERLAP frames shared),
+# streamed in turn in spans of MM_SPAN chunks
+MM_HALF, MM_OVERLAP = 280, 120
+MM_FRAMES = 2 * MM_HALF - MM_OVERLAP
+MM_SEED, MM_NAMES = 21, ("r0", "r1")
+MM_SPAN = 4
+# the keyframe-rate events of the multi-map path, timed per call
+MM_STAGES = ("merge", "loop", "gba")
 KERNEL_SHAPES = [  # (name, N, M, mode, radius scale, level_b dtype as the path passes it)
     ("motion_model", 2048, 2048, "window", 15.0, "int32"),
     ("local_map", 2048, 4096, "window", 4.0, "float32"),
@@ -530,6 +553,18 @@ def loop_cfg():
     return dataclasses.replace(bench_cfg(), vocabulary_path=str(VOCAB))
 
 
+def multimap_cfg():
+    """bench.py's configuration exactly, as its two-robot phase runs it: the
+    loop path's with bench.py's 4000 init features. With 2 x n_features the
+    strafe sequence's robot that starts at frame 160 initializes only near
+    frame 275, in the JAX package as in the port, where the shared frames
+    end (PERF.md, Findings)."""
+    import dataclasses
+
+    cfg = loop_cfg()
+    return dataclasses.replace(cfg, orb=dataclasses.replace(cfg.orb, init_features=4000))
+
+
 def _revisit_candidates(torch, cfg, m, slot, k=5):
     """The ``k`` keyframes older than the loop gap that share the most
     landmarks with keyframe ``slot``: the outbound places that tracking
@@ -672,6 +707,199 @@ def loop_path_phase(torch, ph, device):
     return result, split
 
 
+def vocab_training_phase(torch, m):
+    """Vocabulary training from the main path's final map (every valid
+    keyframe's valid descriptors) with the config's default tree (branching
+    8, depth 3, 6 iterations), once on the card and once on the CPU: the
+    nodes must be equal and the idf within 1e-6 (relative above 1; the
+    card's and the CPU's float32 log)."""
+    from orbslamm_tpu_torch.ops import bow
+    from orbslamm_tpu_torch.utils.config import LoopConfig
+
+    lc = LoopConfig()
+    desc = m.kf_desc[m.kf_valid][m.kf_feat_valid[m.kf_valid]]
+    kw = dict(branching=lc.vocab_branching, depth=lc.vocab_depth, iters=lc.vocab_iters)
+    out = {"descriptors": int(desc.shape[0])}
+    vocs = {}
+    for dev in ("cuda", "cpu"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vocs[dev] = bow.build_vocabulary(desc.to(dev), device=dev, **kw)
+        torch.cuda.synchronize()
+        out[f"{dev}_s"] = time.perf_counter() - t0
+    card, cpu = vocs["cuda"], vocs["cpu"]
+    idf_err = float(((card.idf.cpu() - cpu.idf).abs() / cpu.idf.abs().clamp_min(1.0)).max())
+    out.update(words=card.n_words, nodes_equal=bool(torch.equal(card.nodes.cpu(), cpu.nodes)),
+               idf_max_rel_err=idf_err)
+    print("vocab_training " + json.dumps(out), flush=True)
+    if not out["nodes_equal"] or not idf_err <= 1e-6:
+        raise AssertionError(f"vocabulary trained on the card differs from the CPU's: {out}")
+    return out
+
+
+def _stream_span(mm, k, seq, lo, hi):
+    """Frames lo..hi-1 of the sequence to robot ``k`` in one
+    ``MultiMapper.process_frames`` call; returns its synchronized seconds."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mm.process_frames(k, seq.images[lo:hi], seq.timestamps[lo:hi])
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def multimap_path_phase(torch, ph, device):
+    """The multi-map path: bench.py's two-robot scenario (bench_multi) on
+    bench.py's configuration with its vocabulary file. Two robots on one
+    MultiMapper stream overlapping halves of one strafe sequence (MM_HALF
+    frames each, r1 starting MM_HALF - MM_OVERLAP frames later). Each
+    initializes frame by frame, then both catch up to a common start and
+    are streamed in turn in spans of MM_SPAN chunks through
+    ``MultiMapper.process_frames`` (as orbslamm_tpu/driver.py interleaves
+    robots). The MultiMapper's own deferred scan finds the overlap, verifies
+    it with the cross-map Sim3 and merges the newer map into the older one.
+    Streaming stops one span after the first merge (or at the end of the
+    halves); then the scan pipeline is flushed. Last, three blank frames to
+    r1 must give it a brand-new map while the merged map stays live with
+    all its keyframes. Merge events are timed per call (StageTimer on
+    MM_STAGES)."""
+    from orbslamm_tpu_torch.eval.ate import ate_rmse
+    from orbslamm_tpu_torch.io.synthetic import make_sequence
+    from orbslamm_tpu_torch.models.multimap import MultiMapper
+    from orbslamm_tpu_torch.models.system import TrackingState, resolve_frame_poses
+    from orbslamm_tpu_torch.utils.trace import StageTimer
+
+    cfg = multimap_cfg()
+    ph.launches = 0  # counts from here on are the multi-map path's
+    ph.launches_by_shape.clear()
+    seq = make_sequence(n_frames=MM_FRAMES, n_points=2500, cam=cfg.camera, seed=MM_SEED,
+                        motion="strafe")
+    starts = [0, MM_FRAMES - MM_HALF]
+    with StageTimer(device, prefixes=MM_STAGES) as timer:
+        mm = MultiMapper(cfg, device=device)
+        robots = [mm.add_robot(name) for name in MM_NAMES]
+        offs = []
+        for k, t in enumerate(robots):
+            i, streak = 0, 0
+            while streak < 3 and i < MM_HALF // 2:
+                r = mm.process_frame(k, seq.images[starts[k] + i],
+                                     float(seq.timestamps[starts[k] + i]))
+                streak = streak + 1 if r.state == "OK" else 0
+                i += 1
+            print(f"multimap init frames ({t.name}, seed {MM_SEED}): " + " ".join(
+                f"{f.state[0]}{f.n_inliers}" for f in t.frames), flush=True)
+            if t.state != TrackingState.OK:
+                raise AssertionError(f"multimap path: {t.name} did not initialize")
+            offs.append(i)
+        start = max(offs)
+        for k in range(2):  # catch up to a common start
+            for j in range(offs[k], start):
+                mm.process_frame(k, seq.images[starts[k] + j], float(seq.timestamps[starts[k] + j]))
+        frames0 = [len(t.frames) for t in robots]
+        span_s: list[list[float]] = [[], []]
+        merged_at = None
+        i = start
+        stop = MM_HALF - (MM_HALF - start) % CHUNK
+        while i < stop:
+            n = min(MM_SPAN * CHUNK, stop - i)
+            for k in range(2):
+                dt = _stream_span(mm, k, seq, starts[k] + i, starts[k] + i + n)
+                span_s[k].append(dt * CHUNK / n)  # seconds per chunk in this span
+                if merged_at is None and mm.merges:
+                    merged_at = {"robot": MM_NAMES[k], "frame": starts[k] + i + n - 1,
+                                 "stream_frame": i + n - 1}
+            i += n
+            if merged_at is not None and i - merged_at["stream_frame"] > MM_SPAN * CHUNK - 1:
+                break
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mm.flush_merge_scans()
+        torch.cuda.synchronize()
+        flush_s = time.perf_counter() - t0
+        launches = ph.launches
+        by_shape = _by_shape(ph.launches_by_shape)
+        base = next((m for m in mm.maps if m.map_id == mm.merges[0][1]), None) if mm.merges \
+            else None
+        # union ATE of both robots' OK frames on the base map under one Sim3
+        # (bench.py's merged ATE), poses resolved through reference keyframes
+        est_c, gt_c = [], []
+        for t in robots:
+            ok = [f for f in t.frames if base is not None and f.state == "OK"
+                  and f.map_id == base.map_id]
+            for f, T in zip(ok, resolve_frame_poses(ok)):
+                est_c.append(-T[:3, :3].T @ T[:3, 3])
+                g = seq.poses_cw[int(round(f.timestamp * cfg.camera.fps))]
+                gt_c.append(-g[:3, :3].T @ g[:3, 3])
+        ate = float(ate_rmse(np.stack(est_c), np.stack(gt_c))) if len(est_c) >= 10 else None
+        per_robot = []
+        for k, t in enumerate(robots):
+            post = t.frames[frames0[k]:]
+            first_ok = next(f.frame_id for f in t.frames if f.state == "OK")
+            per_robot.append({
+                "name": t.name, "seq_start": starts[k], "init_frame": first_ok,
+                "frames_streamed": len(post), "frames_ok": sum(f.state == "OK" for f in post),
+                "on_base_map": base is not None and t.mapctx is base, "state": t.state.name,
+                "ok_on_base": sum(f.state == "OK" and base is not None
+                                  and f.map_id == base.map_id for f in t.frames)})
+        maps_before = [(m.map_id, m.n_kf) for m in mm.live_maps()]
+        base_kf = (base.n_kf, int(base.map.kf_valid.sum())) if base is not None else None
+        # loss check: three blank frames to r1
+        r1 = robots[1]
+        t_next = float(seq.timestamps[starts[1] + i - 1])
+        loss = []
+        for _ in range(3):
+            t_next += 1.0 / cfg.camera.fps
+            loss.append(mm.process_frame(1, np.zeros_like(seq.images[0]), t_next).state)
+        torch.cuda.synchronize()
+        maps_after = [(m.map_id, m.n_kf) for m in mm.live_maps()]
+    chunks = [s for k in range(2) for s in span_s[k][1:]]  # each robot's first span warms up
+    result = {
+        "sequence": {"motion": "strafe", "seed": MM_SEED, "frames": MM_FRAMES, "half": MM_HALF,
+                     "robots": list(MM_NAMES)},
+        "robots": per_robot, "merges": [list(x) for x in mm.merges], "merged_at": merged_at,
+        "merge_driven": False, "n_evicted": sum(mm.merge_evictions),
+        "merged_map": None if base is None else {
+            "map_id": base.map_id, "keyframes": base_kf[0], "keyframes_valid": base_kf[1],
+            "landmarks": int(base.map.lm_valid.sum()), "gba_slices": base.gba_slices_run},
+        "merged_ate_m": ate, "merged_ate_frames": len(est_c),
+        "maps_live_before_loss": maps_before, "maps_live_after_loss": maps_after,
+        "loss_states": loss,
+        "fps_per_stream": CHUNK / float(np.median(chunks)),
+        "fps_per_stream_p90": CHUNK / float(np.percentile(chunks, 90)),
+        "chunk_s_median": float(np.median(chunks)), "chunk_s_max": float(np.max(chunks)),
+        "spans": [len(s) for s in span_s], "flush_s": flush_s,
+        "launches": launches, "launches_by_shape": by_shape,
+    }
+    split = {k: {"calls": timer.calls[k], "ms": v * 1e3, "ms_per_call": v * 1e3 / timer.calls[k]}
+             for k, v in sorted(timer.seconds.items())}
+    print("multimap_path " + json.dumps(result), flush=True)
+    print("multimap_stage_split " + json.dumps(split), flush=True)
+    for t in robots:
+        print(f"multimap {t.name} frames: " + " ".join(
+            f"{f.state[0]}{f.n_inliers}" for f in t.frames[frames0[robots.index(t)]:]), flush=True)
+    for rb in per_robot:
+        if rb["frames_ok"] < 0.9 * rb["frames_streamed"] or rb["frames_streamed"] < 4 * CHUNK:
+            raise AssertionError(f"multimap path: {rb['name']} tracked {rb['frames_ok']} of "
+                                 f"{rb['frames_streamed']} streamed frames")
+    if base is None:
+        raise AssertionError(f"multimap path: no merge; {mm.summary()}")
+    if not all(rb["on_base_map"] for rb in per_robot):
+        raise AssertionError(f"multimap path: a robot is not on the base map: {per_robot}")
+    if ate is None or not np.isfinite(ate) or ate >= 0.6:
+        raise AssertionError(f"multimap path: merged ATE {ate} m")
+    new_map = r1.mapctx
+    if (new_map is base or new_map.merged_into is not None or new_map.n_kf != 0
+            or base.merged_into is not None or (base.n_kf, int(base.map.kf_valid.sum())) != base_kf
+            or len(maps_after) != len(maps_before) + 1):
+        raise AssertionError(f"multimap path: no new map on loss: {loss}, {maps_before} -> "
+                             f"{maps_after}")
+    n_ok = sum(rb["frames_ok"] for rb in per_robot)
+    if launches < 2 * n_ok:
+        raise AssertionError(f"{launches} kernel launches for {n_ok} tracked frames")
+    return result, split
+
+
 def main() -> int:
     import torch
 
@@ -693,20 +921,29 @@ def main() -> int:
     import orbslamm_tpu_torch  # noqa: F401  (pins float32 / TF32 off)
     from orbslamm_tpu_torch.ops.cuda import hamming as ph
 
-    t0 = time.perf_counter()
-    ph.build()
-    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {ph.build_seconds})", flush=True)
+    walls = {}
 
-    err, timings = kernel_phase(torch, ph, device)
-    sess, seq, i, result = main_path_phase(torch, ph, device)
-    torch.cuda.synchronize()
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        print(f"phase {name}: {walls[name]:.1f} s", flush=True)
+        return out
+
+    phase("build", ph.build)
+    print(f"nvcc: {ph.build_seconds} s", flush=True)
+    err, timings = phase("kernels", kernel_phase, torch, ph, device)
+    sess, seq, i, result = phase("main_path", main_path_phase, torch, ph, device)
     main_launches = ph.launches
-    split_phase(torch, sess, seq, i, result["chunk_s_median"])
-    torch.cuda.synchronize()
-    loop_result, _ = loop_path_phase(torch, ph, device)
-    torch.cuda.synchronize()
+    phase("split", split_phase, torch, sess, seq, i, result["chunk_s_median"])
+    phase("vocab_training", vocab_training_phase, torch, sess.map)
+    del sess
+    loop_result, _ = phase("loop_path", loop_path_phase, torch, ph, device)
+    mm_result, _ = phase("multimap_path", multimap_path_phase, torch, ph, device)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
+    print("phase_walls_s " + json.dumps(walls), flush=True)
 
     # the local-map shape (2048 x 4096 window) stands for the kernel
     local = next(t for t in timings if t["case"] == "local_map")
@@ -715,7 +952,7 @@ def main() -> int:
         "route": "cuda",
         "source": "orbslamm_tpu_torch/csrc/hamming.cu",
         "replaces": "orbslamm_tpu/ops/pallas/hamming.py:208",
-        "launches": main_launches + loop_result["launches"],
+        "launches": main_launches + loop_result["launches"] + mm_result["launches"],
         "max_abs_err": err,
         "ms": local["call_us"] / 1e3,
         "plain_ms": local["plain_ms"],
@@ -731,6 +968,10 @@ def main() -> int:
     print(f"loop path: {loop_result['fps']:.2f} fps, loops {loop_result['loops']}, "
           f"GBA slices {loop_result['gba_slices']}, relocalization "
           f"{loop_result['reloc_states']}, ATE {loop_result['ate_m']:.4f} m on {smi}", flush=True)
+    print(f"multimap path: merges {mm_result['merges']}, merged ATE "
+          f"{mm_result['merged_ate_m']:.4f} m, {mm_result['fps_per_stream']:.2f} fps per stream "
+          f"(p90 {mm_result['fps_per_stream_p90']:.2f}), loss {mm_result['loss_states']} on {smi}",
+          flush=True)
     print(smi, flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

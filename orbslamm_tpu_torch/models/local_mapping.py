@@ -328,6 +328,15 @@ def process_new_keyframe_cached(cfg: SlamConfig, m: ms.MapState, kf_slot, ind,
     return m, ind
 
 
+def fuse_neighbors(cfg: SlamConfig, m: ms.MapState, kf_slot, n_neighbors: int = 4) -> ms.MapState:
+    """Stand-alone fuse around keyframe ``kf_slot`` (the merge seam's),
+    indicator built on demand."""
+    kf_slot = torch.as_tensor(kf_slot, dtype=torch.int32, device=m.kf_pose.device)
+    with stage("mapping.fuse"):
+        m, _ = _fuse(cfg, m, kf_slot, ms.lm_indicator(m), n_neighbors)
+    return m
+
+
 def local_bundle_adjustment(cfg: SlamConfig, m: ms.MapState, kf_slot, window: int = 12,
                             n_fixed: int = 8, iters: int = 8) -> ms.MapState:
     """Stand-alone local BA (the init path's), indicator built on demand."""

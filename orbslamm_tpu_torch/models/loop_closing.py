@@ -1,5 +1,6 @@
-"""Loop detection, verification, correction and relocalization (port of
-orbslamm_tpu/models/loop_closing.py, same-map part).
+"""Loop detection, verification, correction and relocalization, and the
+MultiMapper's cross-map scan and Sim3 (port of
+orbslamm_tpu/models/loop_closing.py).
 
 Per new keyframe:
   1. BoW candidate retrieval against the keyframe database (one score row +
@@ -15,8 +16,9 @@ Per new keyframe:
 Random draws come from a caller-owned ``torch.Generator``; ``draw``
 (a callable ``(valid, n_hyp, k) -> [n_hyp, k]`` indices) overrides them so
 tests can inject the JAX package's draws. The cross-map functions
-(``merge_scan_scores``, ``compute_loop_sim3_cross``) come with the
-multimap port.
+(``merge_scan_scores``, ``batched_merge_scan_scores``,
+``compute_loop_sim3_cross``) score one map's keyframes against another
+map's database and verify a pair with the same Sim3 ladder.
 """
 
 from __future__ import annotations
@@ -81,18 +83,27 @@ def candidate_groups(cfg: SlamConfig, m: ms.MapState, scores: torch.Tensor, n_gr
     neighbours; only groups within 0.75x of the best survive.
 
     Returns (acc [K], neighbors [K,K] bool incl. self)."""
-    K = scores.shape[0]
+    neighbors = _group_neighbors(m, n_group)
+    return _accumulate_groups(neighbors, scores), neighbors
+
+
+def _group_neighbors(m: ms.MapState, n_group: int) -> torch.Tensor:
+    """[K,K] bool: each keyframe's top-``n_group`` covisible neighbours and
+    itself."""
     W = ms.covisibility(m)
     topw, _ = _top_k(W, n_group)
     thresh = torch.clamp_min(topw[:, -1:], 1)
     neighbors = (W >= thresh) & (W > 0) & m.kf_valid[None, :]
-    neighbors = neighbors | torch.eye(K, dtype=torch.bool, device=W.device)
+    return neighbors | torch.eye(W.shape[0], dtype=torch.bool, device=W.device)
+
+
+def _accumulate_groups(neighbors: torch.Tensor, scores: torch.Tensor) -> torch.Tensor:
+    """[K] group-accumulated scores, -1 outside 0.75x of the best."""
     s = torch.clamp_min(scores, 0.0)
     acc = neighbors.to(torch.float32) @ s
     acc = torch.where(scores > 0, acc, torch.full_like(acc, -1.0))
     best = acc.amax()
-    acc = torch.where(acc >= 0.75 * best, acc, torch.full_like(acc, -1.0))
-    return acc, neighbors
+    return torch.where(acc >= 0.75 * best, acc, torch.full_like(acc, -1.0))
 
 
 def relocalization_candidates(cfg: SlamConfig, m: ms.MapState, kf_bow, v):
@@ -381,14 +392,55 @@ def relocalize_against_kf(cfg: SlamConfig, m: ms.MapState, feats, K, cand,
 
 
 # ---------------------------------------------------------------------------
-# Cross-map entry points (the multimap port)
+# Cross-map scan and verification (the MultiMapper's)
 # ---------------------------------------------------------------------------
 
-_MULTIMAP = "multi-map merging (ROADMAP queue 1, step 12)"
+def batched_merge_scan_scores(cfg: SlamConfig, m_b: ms.MapState, bow_b: torch.Tensor, slots,
+                              m_a: ms.MapState, bow_a: torch.Tensor):
+    """Cross-map candidate retrieval for a batch of query keyframes
+    ``slots`` [Q] of map B against map A's database (MultiMapper::DetectLoop,
+    MultiMapper.cc:124-165): raw scores, the minScore normalizer from each
+    query's B-covisible keyframes (MultiMapper.cc:145-162) and A-side
+    covisibility-group accumulation.
+
+    Returns (scores [Q,K_A], min_score [Q], acc [Q,K_A], neighbors
+    [Q,K_A,K_A])."""
+    slots = torch.as_tensor(slots, device=bow_b.device).long()
+    v = bow_b[slots]  # [Q, n_words]
+    scores = bow.bow_score(v, bow_a)
+    scores = torch.where(m_a.kf_valid[None, :], scores, torch.full_like(scores, -1.0))
+    conn = (ms.covisibility(m_b)[slots] > 0) & m_b.kf_valid[None, :]
+    own = bow.bow_score(v, bow_b)
+    min_score = torch.clamp_max(
+        torch.where(conn, own, torch.full_like(own, float("inf"))).amin(-1), 1.0)
+    min_score = torch.where(torch.isfinite(min_score), min_score,
+                            torch.full_like(min_score, 0.05))
+    nb = _group_neighbors(m_a, 10)  # candidate_groups' default group size
+    acc = torch.stack([_accumulate_groups(nb, s) for s in scores])
+    return scores, min_score, acc, nb.expand(len(slots), -1, -1)
 
 
-def _multimap_not_ported(*args, **kwargs):
-    raise NotImplementedError(f"{_MULTIMAP} is not ported to orbslamm_tpu_torch yet")
+def merge_scan_scores(cfg: SlamConfig, m_b: ms.MapState, bow_b: torch.Tensor, slot,
+                      m_a: ms.MapState, bow_a: torch.Tensor):
+    """``batched_merge_scan_scores`` for one query keyframe. Returns
+    (scores [K_A], min_score, acc [K_A], neighbors [K_A,K_A])."""
+    return tuple(x[0] for x in batched_merge_scan_scores(cfg, m_b, bow_b, [int(slot)],
+                                                         m_a, bow_a))
 
 
-merge_scan_scores = batched_merge_scan_scores = compute_loop_sim3_cross = _multimap_not_ported
+def compute_loop_sim3_cross(cfg: SlamConfig, m_b: ms.MapState, m_a: ms.MapState, slot_b,
+                            slot_a, generator: torch.Generator | None = None,
+                            draw=None) -> LoopSim3:
+    """Cross-map Sim3: keyframe ``slot_b`` of map B against ``slot_a`` of
+    map A (the MultiMapper's merge verification, MultiMapper.cc:209-316).
+    S_ba maps B-keyframe camera coords -> A-keyframe camera coords."""
+    has_b, pb = _landmark_side(m_b, slot_b)
+    has_a, pa = _landmark_side(m_a, slot_a)
+    success, S, n = _sim3_between_feature_sets(
+        cfg,
+        m_b.kf_desc[slot_b], m_b.kf_angle[slot_b], pb, has_b,
+        m_a.kf_desc[slot_a], m_a.kf_angle[slot_a], pa, has_a,
+        m_b.kf_K[slot_b], m_a.kf_K[slot_a], _drawer(generator, draw),
+        fix_scale=cfg.sensor != "mono",
+    )
+    return LoopSim3(success=success, S_ba=S, n_inliers=n)

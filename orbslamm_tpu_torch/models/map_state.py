@@ -220,13 +220,20 @@ def insert_keyframe(m: MapState, slot, T_cw, K_mat, feats: Features, obs_lm,
     )
 
 
-def free_lm_slots(m: MapState, n: int) -> torch.Tensor:
+def free_lm_slots(m: MapState, n: int, by_value: bool = False) -> torch.Tensor:
     """[n] int32 indices of free landmark slots (lowest free index first;
-    occupied slots, lowest first, only when the pool overflows)."""
+    occupied slots only when the pool overflows: lowest first, or with
+    ``by_value`` the lowest found ratio first, MapPoint::GetFoundRatio, so a
+    merge into a tight pool evicts the worst landmarks)."""
     L = m.lm_valid.shape[0]
     dev = m.lm_valid.device
-    key = torch.where(m.lm_valid, torch.full((L,), -1e9, device=dev),
-                      -torch.arange(L, dtype=torch.float32, device=dev))
+    if by_value:
+        ratio = m.lm_found.to(torch.float32) / torch.clamp_min(
+            m.lm_visible.to(torch.float32), 1.0)
+        occupied = -1e6 - 1e3 * ratio
+    else:
+        occupied = torch.full((L,), -1e9, device=dev)
+    key = torch.where(m.lm_valid, occupied, -torch.arange(L, dtype=torch.float32, device=dev))
     idx = torch.sort(key, descending=True, stable=True).indices[:n]
     return idx.to(torch.int32)
 

@@ -1,14 +1,12 @@
-"""Bag-of-binary-words place recognition, retrieval side (port of
-orbslamm_tpu/ops/bow.py).
+"""Bag-of-binary-words place recognition (port of orbslamm_tpu/ops/bow.py).
 
 Same design as the JAX package: the vocabulary is a flat level-major array
 of node descriptors, tree descent is a fixed-depth ladder of Hamming
 distances against each descriptor's k children, a BoW vector is a dense
 L1-normalized tf-idf row, and the keyframe database is the stacked
 [K, n_words] matrix. Files load with numpy and the same schema as the JAX
-package's ``.npz`` (and DBoW2's ``ORBvoc.txt``).
-
-On-device vocabulary training (``build_vocabulary``) is not ported yet.
+package's ``.npz`` (and DBoW2's ``ORBvoc.txt``); ``build_vocabulary``
+trains a tree from descriptors on the device (hierarchical k-majority).
 """
 
 from __future__ import annotations
@@ -18,10 +16,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from orbslamm_tpu_torch.ops.matching import unpack_bits
+from orbslamm_tpu_torch.ops.matching import _top_k, unpack_bits
 from orbslamm_tpu_torch.utils.trace import stage
-
-TRAINING = "on-device vocabulary training (ROADMAP queue 1, step 9b)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,8 +40,87 @@ class Vocabulary:
                                    node_valid=nv)
 
 
-def build_vocabulary(*args, **kwargs) -> Vocabulary:
-    raise NotImplementedError(f"{TRAINING} is not ported to orbslamm_tpu_torch yet")
+def _build_voc_device(desc: torch.Tensor, valid: torch.Tensor, branching: int, depth: int,
+                      iters: int, draws: torch.Tensor):
+    """Hierarchical k-majority over all groups of a level at once: Hamming
+    distances from one [N,256] x [256,G*k] product of 0/1 float32 bits
+    (pop(a) + pop(c) - 2<a,c>, exact), masked to each descriptor's own
+    group, and majority-vote centroids from ``index_add_`` segment sums
+    (sums of 0/1, exact in any order). ``draws`` [depth, N] are the random
+    keys that pick each group's k initial members; ``valid`` masks the
+    padding rows. Returns (packed nodes [n_nodes, 32] uint8, idf [k^depth])."""
+    dev = desc.device
+    bits = unpack_bits(desc) * valid[:, None]  # [N,256] f32 in {0,1}
+    N = bits.shape[0]
+    w = valid.to(torch.float32)
+    group = torch.zeros(N, dtype=torch.int64, device=dev)  # slot id within the level
+    pop_b = bits.sum(1)
+    level_cents = []
+    for level in range(depth):
+        G = branching ** level
+        Gk = G * branching
+        # init: k random members per group (segmented top-k of random keys;
+        # non-members score -1, ties taken lowest index first as lax.top_k)
+        member = (group[None, :] == torch.arange(G, device=dev)[:, None]) & valid[None, :]
+        _, init_idx = _top_k(torch.where(member, draws[level][None, :],
+                                         torch.full_like(draws[level][None, :], -1.0)),
+                             branching)  # [G,k]
+        cents = bits[init_idx.reshape(-1)]  # [Gk,256]
+        own = (torch.arange(Gk, device=dev) // branching)[None, :] == group[:, None]  # [N,Gk]
+
+        def assign_to(cents):
+            d = pop_b[:, None] + cents.sum(1)[None, :] - 2.0 * (bits @ cents.T)
+            d = torch.where(own, d, torch.full_like(d, float("inf")))
+            return torch.argmin(d, dim=1)  # first minimum, as jnp.argmin
+
+        for _ in range(iters):
+            assign = assign_to(cents)
+            sums = torch.zeros((Gk, bits.shape[1]), dtype=torch.float32, device=dev)
+            sums.index_add_(0, assign, bits * w[:, None])
+            cnts = torch.zeros(Gk, dtype=torch.float32, device=dev).index_add_(0, assign, w)
+            new = (sums / torch.clamp_min(cnts[:, None], 1.0)) >= 0.5
+            # an empty cluster keeps its previous centroid
+            cents = torch.where(cnts[:, None] > 0, new.to(torch.float32), cents)
+        group = assign_to(cents)
+        level_cents.append(cents)
+
+    nodes_bits = torch.cat(level_cents, 0)  # level-major
+    weights = 2.0 ** torch.arange(8, dtype=torch.float32, device=dev)  # little bit order
+    packed = (nodes_bits.reshape(-1, 32, 8) * weights).sum(-1).to(torch.uint8)
+    counts = torch.zeros(branching ** depth, dtype=torch.float32, device=dev).index_add_(
+        0, group, w) + 1.0
+    idf = torch.log(valid.sum().to(torch.float32) / counts)
+    return packed, idf
+
+
+def build_vocabulary(descriptors, branching: int = 8, depth: int = 3, iters: int = 8,
+                     seed: int = 0, max_train: int = 32768, *, device,
+                     draws=None) -> Vocabulary:
+    """Hierarchical binary k-majority vocabulary training on ``device``.
+
+    descriptors: [N, 32] uint8 training set (array or tensor), strided down
+    to ``max_train`` if larger and zero-padded to the next power of two (the
+    padded size fixes the draws and the idf, as in the JAX package).
+    The per-level random keys come from a CPU generator seeded with
+    ``seed``, so a tree trained on the card equals one trained on the CPU;
+    ``draws`` ([depth, padded N] float32) replaces them.
+    Returns a Vocabulary with branching^depth leaf words, idf from the
+    training set."""
+    desc = torch.as_tensor(descriptors, device=device)
+    if len(desc) > max_train:
+        desc = desc[::int(np.ceil(len(desc) / max_train))][:max_train]
+    n = len(desc)
+    cap = max(1 << int(np.ceil(np.log2(max(n, branching)))), branching)
+    pad = torch.zeros((cap - n, desc.shape[1]), dtype=torch.uint8, device=device)
+    valid = torch.arange(cap, device=device) < n
+    if draws is None:
+        g = torch.Generator(device="cpu").manual_seed(seed)
+        draws = torch.rand((depth, cap), generator=g, dtype=torch.float32)
+    draws = torch.as_tensor(draws, dtype=torch.float32).to(device)
+    with stage("bow.train"):
+        nodes, idf = _build_voc_device(torch.cat([desc, pad], 0), valid, branching, depth,
+                                       iters, draws)
+    return Vocabulary(nodes=nodes, branching=branching, depth=depth, idf=idf)
 
 
 def vocabulary_from_numpy(nodes, idf, branching: int, depth: int, node_valid=None, *,

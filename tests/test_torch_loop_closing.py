@@ -281,8 +281,12 @@ def test_dbow2_text_vocabulary(tmp_path):
     assert np.array_equal(
         tbow.assign_words(voc_t, _t(desc), _t(valid)).numpy(),
         np.asarray(jbow.assign_words(voc_j, jnp.asarray(desc), jnp.asarray(valid))))
-    with pytest.raises(NotImplementedError, match="step 9b"):
-        tbow.build_vocabulary(desc)
+    # a tree trained from the same descriptors is complete (no node
+    # validity) and assigns every valid descriptor a word
+    trained = tbow.build_vocabulary(desc, branching=5, depth=3, iters=3, device="cpu")
+    assert trained.node_valid is None and trained.nodes.shape == (5 + 25 + 125, 32)
+    words = tbow.assign_words(trained, _t(desc), _t(valid)).numpy()
+    assert ((words >= 0) == valid).all() and words.max() < 125
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """Package-level checks of orbslamm_tpu_torch: it imports neither jax nor the
 JAX package, its copies of the JAX package's numpy-only modules (config,
 synthetic sequences, ATE) and generators are exact, its converters carry a
-map across both ways, the CPU matcher never launches the CUDA kernel, and
-paths the port does not have yet are refused rather than skipped."""
+map across both ways, the CPU matcher never launches the CUDA kernel, the
+paths of earlier steps that once were refused now run, and the paths the
+port does not have yet (stereo and RGB-D) are refused rather than skipped."""
 
 import ast
 import dataclasses
@@ -69,7 +70,7 @@ def test_port_never_imports_jax():
         import orbslamm_tpu_torch
         from orbslamm_tpu_torch import convert
         from orbslamm_tpu_torch.models import (fused, local_mapping, loop_closing, map_state,
-                                               system, tracking)
+                                               multimap, system, tracking)
         from orbslamm_tpu_torch.ops import ba, bow, geometry, matching, orb, ransac
         from orbslamm_tpu_torch.ops.cuda import hamming
         from orbslamm_tpu_torch.utils import trace
@@ -363,25 +364,47 @@ def test_paths_the_slice_lacks_are_refused():
     sess.deactivate_localization_mode()
     assert not sess.tracker.localization_only
     # on-device vocabulary training: loop closing on, no vocabulary file,
-    # once the map holds 4 keyframes
+    # once the map holds 4 keyframes (here 4 keyframes of random features)
+    from orbslamm_tpu_torch.io.synthetic import fabricate_map, make_landmark_field
+    rng = np.random.default_rng(4)
+    pts = make_landmark_field(300, extent=4.0, seed=4)
+    poses = np.stack([np.eye(4, dtype=np.float32)] * 4)
+    poses[:, 0, 3] = [0.0, -0.2, -0.4, -0.6]
+    m, _ = fabricate_map(CFG, poses, pts, rng.integers(0, 256, (300, 32), dtype=np.uint8),
+                         device="cpu")
     sess = MonocularSession(CFG, device="cpu")
-    sess.tracker.mapctx.n_kf = 4
+    mc = sess.tracker.mapctx
+    mc.map = m
     img = np.zeros((CAM.height, CAM.width), np.uint8)
-    with pytest.raises(NotImplementedError, match="step 9b"):
-        sess.process_frame(img, 0.0)
-    with pytest.raises(NotImplementedError, match="step 9b"):
-        sess.activate_localization_mode()
-    sess.enable_loop_closing = False
-    sess.tracker.mapctx.n_kf = 0
-    assert sess.process_frame(img, 0.0).state == "NOT_INITIALIZED"
+    assert sess.process_frame(img, 0.0).state == "NOT_INITIALIZED" and mc.voc is None
+    mc.n_kf = 4
+    sess.process_frame(img, 0.0)
+    assert mc.voc is not None and mc.voc.n_words == 8 ** 3
+    assert torch.allclose(mc.kf_bow[:4].sum(-1), torch.ones(4))  # every keyframe's row
+    sess.activate_localization_mode()
+    assert sess.tracker.localization_only
     # stereo and RGB-D
     with pytest.raises(NotImplementedError, match="step 13"):
         MonocularSession(dataclasses.replace(CFG, sensor="stereo"), device="cpu")
-    # the multi-map entry points
+    # the multi-map entry points: a MultiMapper, the cross-map scan and
+    # Sim3 between the session's map and itself, and the adoption of a
+    # merged map with the identity Sim3
     from orbslamm_tpu_torch.models import loop_closing
-    with pytest.raises(NotImplementedError, match="step 12"):
-        sess.tracker.adopt_merged_map(None, None, None)
-    for fn in (loop_closing.merge_scan_scores, loop_closing.batched_merge_scan_scores,
-               loop_closing.compute_loop_sim3_cross):
-        with pytest.raises(NotImplementedError, match="step 12"):
-            fn()
+    from orbslamm_tpu_torch.models.multimap import MultiMapper
+    from orbslamm_tpu_torch.ops import geometry
+    mm = MultiMapper(CFG, device="cpu")
+    assert mm.add_robot().name == "robot0" and mm.summary()["n_maps"] == 1
+    scores, min_score, acc, nb = loop_closing.merge_scan_scores(CFG, m, mc.kf_bow, 3, m,
+                                                                mc.kf_bow)
+    assert float(scores[3]) == pytest.approx(1.0) and tuple(nb.shape) == (8, 8)
+    batched = loop_closing.batched_merge_scan_scores(CFG, m, mc.kf_bow, [3, 2], m, mc.kf_bow)
+    assert torch.equal(batched[0][0], scores) and tuple(batched[3].shape) == (2, 8, 8)
+    ls = loop_closing.compute_loop_sim3_cross(CFG, m, m, 1, 2, torch.Generator().manual_seed(0))
+    assert ls.S_ba.shape == (8,) and int(ls.n_inliers) >= 0
+    tr = mm.robots[0]
+    tr.T_cw = torch.as_tensor(poses[1])
+    tr.last_lm = torch.tensor([-1, 0, 5], dtype=torch.int32)
+    remap = torch.arange(512, dtype=torch.int32) + 7
+    tr.adopt_merged_map(mc, geometry.sim3_identity(device="cpu"), remap)
+    assert tr.mapctx is mc and torch.allclose(tr.T_cw, torch.as_tensor(poses[1]), atol=1e-6)
+    assert tr.last_lm.tolist() == [-1, 7, 12]
