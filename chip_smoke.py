@@ -56,6 +56,20 @@ non-zero and no phase failure is caught:
    Sim3) below 0.6 m, a new map on loss with the merged map kept, and >= 2
    kernel launches per tracked frame, and times the merge events.
 
+9. the bank path: the same scenario as bench.py runs it, through the
+   robot-parallel ``StreamBank``: after each robot's init, one bank
+   advances both robots a chunk per call (each robot's deferred-mapping
+   chunk in turn: tracking of a 4-frame segment, then its queued keyframes
+   mapped), with the MultiMapper's loss handling and merge pump wired in;
+   seed 5 if seed 21 does not merge, as bench.py; asserts for each robot
+   >= 90% tracked frames, a merge with an owner/follower pair and both
+   robots tracking the base map after it, a follower keyframe replayed into
+   the shared map, a merged ATE below 0.6 m, and >= 2 kernel launches per
+   tracked frame; prints bench.py's ``multi`` keys (fps per stream at the
+   median, mean and p90 of the timed chunks, the slowest chunk, merged,
+   merged ATE, states) and times the bank's, merge, loop and global-BA
+   stages per call.
+
 Each phase prints its wall time. The last line is the JSON contract line;
 the line before it holds the kernels' record. Needs the port package beside
 it (its own config, synthetic-sequence and ATE modules included) and the
@@ -97,6 +111,10 @@ INIT_WITHIN = 12
 LOOP_FRAMES = 120
 LOOP_AT = 104
 RELOC_FRAMES = (25, 35, 45)
+# the bank path: bench.py's bench_multi through the StreamBank, its seeds
+# in bench.py's order, and the stages timed per call
+BANK_SEEDS = (21, 5)
+BANK_STAGES = ("bank", "merge", "loop", "gba")
 # the multi-map path: bench.py's bench_multi scenario (two robots on
 # overlapping halves of one strafe sequence, MM_OVERLAP frames shared),
 # streamed in turn in spans of MM_SPAN chunks
@@ -257,25 +275,31 @@ def device_us(torch, fn, reps=20, own=is_matcher):
     """Profile ``reps`` calls of ``fn`` (after a warm call). Returns, per
     call and in microseconds, the device time of the operations ``own``
     names (the matcher's kernels), of all device operations, and of each
-    device operation name (its median duration times its launches a call)."""
+    device operation name (its median duration times its launches a call),
+    and how many profiling sessions that took."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     spans: dict[str, list[float]] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
-            spans.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    # a profiling session on the card now and then records no device
+    # events at all (kernels that ran, seen by CUDA events): profile again
+    for sessions in range(1, 4):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+                spans.setdefault(e.name, []).append(e.time_range.elapsed_us())
+        if spans:
+            break
     if not spans:
-        raise AssertionError("the profiler recorded no device time")
+        raise AssertionError("the profiler recorded no device time in 3 sessions")
     per_call = {k: float(np.median(v)) * len(v) / reps for k, v in spans.items()}
     mine = sum(v for k, v in per_call.items() if own(k))
-    return mine, sum(per_call.values()), per_call
+    return mine, sum(per_call.values()), per_call, sessions
 
 
 def library_us(torch, args):
@@ -351,7 +375,7 @@ def kernel_phase(torch, ph, device):
             call = lambda: ph.match_tables(*args, **kw)  # noqa: E731
             row["call_us"] = _median_ms(torch, call) * 1e3
             row["plain_ms"] = _median_ms(torch, lambda: ph.match_tables_ref(*args, **kw))
-            row["device_us"], _, per_op = device_us(torch, call)
+            row["device_us"], _, per_op, row["profiler_sessions"] = device_us(torch, call)
             foreign = [x for x in per_op if not is_matcher(x)]
             if foreign:
                 raise AssertionError(f"match_tables launched more than its kernels: {foreign}")
@@ -759,8 +783,8 @@ def multimap_path_phase(torch, ph, device):
     ``MultiMapper.process_frames`` (as orbslamm_tpu/driver.py interleaves
     robots). The MultiMapper's own deferred scan finds the overlap, verifies
     it with the cross-map Sim3 and merges the newer map into the older one.
-    Streaming stops one span after the first merge (or at the end of the
-    halves); then the scan pipeline is flushed. Last, three blank frames to
+    Streaming stops after the span in which the first merge lands (or at
+    the end of the halves); then the scan pipeline is flushed. Last, three blank frames to
     r1 must give it a brand-new map while the merged map stays live with
     all its keyframes. Merge events are timed per call (StageTimer on
     MM_STAGES)."""
@@ -810,7 +834,7 @@ def multimap_path_phase(torch, ph, device):
                     merged_at = {"robot": MM_NAMES[k], "frame": starts[k] + i + n - 1,
                                  "stream_frame": i + n - 1}
             i += n
-            if merged_at is not None and i - merged_at["stream_frame"] > MM_SPAN * CHUNK - 1:
+            if merged_at is not None:
                 break
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -823,15 +847,19 @@ def multimap_path_phase(torch, ph, device):
             else None
         # union ATE of both robots' OK frames on the base map under one Sim3
         # (bench.py's merged ATE), poses resolved through reference keyframes
-        est_c, gt_c = [], []
-        for t in robots:
+        est_c, gt_c, tags = [], [], []  # tags: (robot, stream frame)
+        for k, t in enumerate(robots):
             ok = [f for f in t.frames if base is not None and f.state == "OK"
                   and f.map_id == base.map_id]
             for f, T in zip(ok, resolve_frame_poses(ok)):
                 est_c.append(-T[:3, :3].T @ T[:3, 3])
-                g = seq.poses_cw[int(round(f.timestamp * cfg.camera.fps))]
+                fi = int(round(f.timestamp * cfg.camera.fps))
+                g = seq.poses_cw[fi]
                 gt_c.append(-g[:3, :3].T @ g[:3, 3])
+                tags.append((k, fi - starts[k]))
         ate = float(ate_rmse(np.stack(est_c), np.stack(gt_c))) if len(est_c) >= 10 else None
+        ate_split = None if ate is None or merged_at is None else _ate_split(
+            np.stack(est_c), np.stack(gt_c), np.asarray(tags), merged_at["stream_frame"])
         per_robot = []
         for k, t in enumerate(robots):
             post = t.frames[frames0[k]:]
@@ -862,7 +890,7 @@ def multimap_path_phase(torch, ph, device):
         "merged_map": None if base is None else {
             "map_id": base.map_id, "keyframes": base_kf[0], "keyframes_valid": base_kf[1],
             "landmarks": int(base.map.lm_valid.sum()), "gba_slices": base.gba_slices_run},
-        "merged_ate_m": ate, "merged_ate_frames": len(est_c),
+        "merged_ate_m": ate, "merged_ate_frames": len(est_c), "merged_ate_split": ate_split,
         "maps_live_before_loss": maps_before, "maps_live_after_loss": maps_after,
         "loss_states": loss,
         "fps_per_stream": CHUNK / float(np.median(chunks)),
@@ -897,6 +925,202 @@ def multimap_path_phase(torch, ph, device):
     n_ok = sum(rb["frames_ok"] for rb in per_robot)
     if launches < 2 * n_ok:
         raise AssertionError(f"{launches} kernel launches for {n_ok} tracked frames")
+    return result, split
+
+
+def _bank_run(torch, ph, device, cfg, seed):
+    """One run of bench.py's ``bench_multi`` on ``seed`` through the port's
+    StreamBank. Returns (result, per-stage split); result["error"] is set
+    when a robot did not initialize."""
+    from orbslamm_tpu_torch.eval.ate import ate_rmse
+    from orbslamm_tpu_torch.io.synthetic import make_sequence
+    from orbslamm_tpu_torch.models.multimap import MultiMapper
+    from orbslamm_tpu_torch.models.system import TrackingState, resolve_frame_poses
+    from orbslamm_tpu_torch.parallel.streams import StreamBank
+    from orbslamm_tpu_torch.utils.trace import StageTimer
+
+    ph.launches = 0  # counts from here on are the bank path's
+    ph.launches_by_shape.clear()
+    seq = make_sequence(n_frames=MM_FRAMES, n_points=2500, cam=cfg.camera, seed=seed,
+                        motion="strafe")
+    starts = [0, MM_FRAMES - MM_HALF]
+    with StageTimer(device, prefixes=BANK_STAGES) as timer:
+        mm = MultiMapper(cfg, device=device)
+        robots = [mm.add_robot(name) for name in MM_NAMES]
+        offs = []
+        for k, t in enumerate(robots):
+            i, streak = 0, 0
+            while streak < 3 and i < MM_HALF // 2:
+                r = mm.process_frame(k, seq.images[starts[k] + i],
+                                     float(seq.timestamps[starts[k] + i]))
+                streak = streak + 1 if r.state == "OK" else 0
+                i += 1
+            print(f"bank init frames ({t.name}, seed {seed}): " + " ".join(
+                f"{f.state[0]}{f.n_inliers}" for f in t.frames), flush=True)
+            if t.state != TrackingState.OK:
+                return {"seed": seed, "error": f"{t.name} did not initialize"}, {}
+            offs.append(i)
+        start = max(offs)
+        for k in range(2):  # catch up to a common start
+            for j in range(offs[k], start):
+                mm.process_frame(k, seq.images[starts[k] + j], float(seq.timestamps[starts[k] + j]))
+        frames0 = [len(t.frames) for t in robots]
+        bank = StreamBank(cfg, robots, device=device, chunk_size=CHUNK)
+        # loss recovery inside the bank: a new map on loss (Tracking.cc:330-366)
+        bank.on_lost = lambda t: mm._handle_loss(t, 0.0)
+        bank.on_chunk_end = mm.pump_merge_scans
+
+        def chunk_at(i):
+            imgs = np.stack([np.stack(seq.images[starts[k] + i:starts[k] + i + CHUNK])
+                             for k in range(2)])
+            stamps = np.stack([seq.timestamps[starts[k] + i:starts[k] + i + CHUNK]
+                               for k in range(2)])
+            return imgs, stamps
+
+        i = start
+        for _ in range(2):  # warm-up chunks, as bench.py
+            if i + CHUNK <= MM_HALF:
+                bank.process_chunk(*chunk_at(i))
+                i += CHUNK
+        chunk_s, merged_at = [], None
+        while i + CHUNK <= MM_HALF:
+            imgs, stamps = chunk_at(i)
+            t0 = time.perf_counter()
+            bank.process_chunk(imgs, stamps)
+            chunk_s.append(time.perf_counter() - t0)
+            if merged_at is None and mm.merges:
+                merged_at = {"chunk": len(chunk_s) + 1, "stream_frame": i + CHUNK - 1,
+                             "follower_pairs": dict(bank.followers)}
+            i += CHUNK
+        t0 = time.perf_counter()
+        bank.flush()
+        chunk_s[-1] += time.perf_counter() - t0
+        bank.sync_to_trackers()
+        mm.flush_merge_scans()  # drain the deferred scan pipeline
+        torch.cuda.synchronize()
+        launches, by_shape = ph.launches, _by_shape(ph.launches_by_shape)
+    merged = bool(mm.merges)
+    base_id = robots[0].mapctx.map_id  # bench.py's base map
+    est_c, gt_c, tags = [], [], []  # tags: (robot, stream frame)
+    for k, t in enumerate(robots):
+        ok = [f for f in t.frames if merged and f.state == "OK" and f.map_id == base_id]
+        for f, T in zip(ok, resolve_frame_poses(ok)):
+            est_c.append(-T[:3, :3].T @ T[:3, 3])
+            fi = int(round(f.timestamp * cfg.camera.fps))
+            g = seq.poses_cw[fi]
+            gt_c.append(-g[:3, :3].T @ g[:3, 3])
+            tags.append((k, fi - starts[k]))
+    ate = float(ate_rmse(np.stack(est_c), np.stack(gt_c))) if len(est_c) >= 10 else None
+    merge_fid = None if merged_at is None else merged_at["stream_frame"]
+    ate_split = None if ate is None or merge_fid is None else _ate_split(
+        np.stack(est_c), np.stack(gt_c), np.asarray(tags), merge_fid)
+    per_robot = []
+    for k, t in enumerate(robots):
+        post = t.frames[frames0[k]:]
+        per_robot.append({
+            "name": t.name, "seq_start": starts[k], "init_frame": offs[k] - 1,
+            "frames_streamed": len(post), "frames_ok": sum(f.state == "OK" for f in post),
+            "state": t.state.name, "map_id": t.mapctx.map_id,
+            # OK frames on the base map after the merge's chunk
+            "ok_on_base_after_merge": sum(
+                f.state == "OK" and f.map_id == base_id and merge_fid is not None
+                and round(f.timestamp * cfg.camera.fps) - starts[k] > merge_fid
+                for f in post)})
+    ct = np.asarray(chunk_s)
+    result = {
+        "seed": seed, "sequence": {"motion": "strafe", "frames": MM_FRAMES, "half": MM_HALF,
+                                   "robots": list(MM_NAMES)},
+        "fps_per_stream": CHUNK / float(np.median(ct)),
+        "fps_per_stream_mean": CHUNK * len(ct) / float(np.sum(ct)),
+        "fps_per_stream_p90": CHUNK / float(np.percentile(ct, 90)),
+        "max_chunk_s": float(np.max(ct)), "n_chunks_measured": len(ct), "n_streams": 2,
+        "merged": merged, "merged_ate_rmse_m": ate, "merged_ate_frames": len(est_c),
+        "merged_ate_split": ate_split, "merge_driven": False,
+        "states": [t.state.name for t in robots],
+        "robots": per_robot, "merges": [list(x) for x in mm.merges], "merged_at": merged_at,
+        "bank_follower": bank.count("bank_follower"),
+        "bank_replay_kf": bank.count("bank_replay_kf"),
+        "bank_backlog_dropped": bank.count("bank_backlog_dropped"),
+        "bank_owner_promoted": bank.count("bank_owner_promoted"),
+        "sync_points": bank.sync_points,
+        "launches": launches, "launches_by_shape": by_shape,
+    }
+    split = {k: {"calls": timer.calls[k], "ms": v * 1e3, "ms_per_call": v * 1e3 / timer.calls[k]}
+             for k, v in sorted(timer.seconds.items())}
+    return result, split
+
+
+def _ate_split(est, gt, tags, merge_fid):
+    """Where a two-robot path's merged ATE comes from. ``est``/``gt``:
+    [N, 3] camera centres of both robots' OK frames on the base map,
+    ``tags`` [N, 2]: (robot, stream frame). Returns the merged ATE to one
+    span (MM_SPAN chunks) after the merge, and per robot, before and after
+    the merge's chunk and per 40 stream frames, the RMS error under the
+    union's one Sim3 and (before/after) under the group's own Sim3, which
+    leaves out a drift of the group against the other frames."""
+    from orbslamm_tpu_torch.eval.ate import align_trajectory, ate_rmse
+
+    def rms(e):
+        return float(np.sqrt((e * e).sum(1).mean())) if len(e) else None
+
+    err = align_trajectory(est, gt) - gt
+    robot, frame = tags[:, 0], tags[:, 1]
+    end = merge_fid + MM_SPAN * CHUNK
+    win = frame <= end
+    out = {"window_end_stream_frame": int(end), "window_frames": int(win.sum()),
+           "window_m": float(ate_rmse(est[win], gt[win])) if win.sum() >= 10 else None}
+    for k, name in enumerate(MM_NAMES):
+        for part, sel in (("before", frame <= merge_fid), ("after", frame > merge_fid)):
+            m = (robot == k) & sel
+            out[f"{name}_{part}_merge"] = {
+                "frames": int(m.sum()), "union_sim3_m": rms(err[m]),
+                "own_sim3_m": float(ate_rmse(est[m], gt[m])) if m.sum() >= 10 else None}
+        out[f"{name}_union_sim3_m_per_40"] = [
+            rms(err[(robot == k) & (frame // 40 == b)]) for b in range(MM_HALF // 40)]
+    return out
+
+
+def bank_path_phase(torch, ph, device):
+    """The bank path: bench.py's ``bench_multi`` exactly, through the port's
+    ``StreamBank``, on bench.py's configuration (``multimap_cfg``). Two
+    robots on one MultiMapper stream overlapping halves of one strafe
+    sequence (MM_HALF frames each, r1 starting MM_HALF - MM_OVERLAP frames
+    later); each initializes frame by frame, both catch up to a common
+    start, and then one bank advances both by a chunk of CHUNK frames per
+    call (each robot's deferred-mapping chunk in turn, one fetch per chunk,
+    pipelined), with the MultiMapper's loss handling and merge pump wired
+    in as bench.py wires them. Two warm-up chunks, then every chunk to the
+    end of the halves is timed around ``process_chunk``; ``flush()`` counts
+    in the last chunk. Seed 5 follows if seed 21 does not merge, as bench.py
+    retries. Asserts both robots initialize, >= 90% of streamed frames
+    tracked per robot, a merge with an owner/follower pair and both robots
+    tracking the base map after it, a follower keyframe replayed, a finite
+    merged ATE below 0.6 m and >= 2 kernel launches per tracked frame."""
+    cfg = multimap_cfg()
+    for seed in BANK_SEEDS:
+        result, split = _bank_run(torch, ph, device, cfg, seed)
+        if result.get("merged"):
+            break
+    print("bank_path " + json.dumps(result), flush=True)
+    print("bank_stage_split " + json.dumps(split), flush=True)
+    if "error" in result:
+        raise AssertionError(f"bank path: {result['error']}")
+    for rb in result["robots"]:
+        if rb["frames_ok"] < 0.9 * rb["frames_streamed"] or rb["frames_streamed"] < 4 * CHUNK:
+            raise AssertionError(f"bank path: {rb['name']} tracked {rb['frames_ok']} of "
+                                 f"{rb['frames_streamed']} streamed frames")
+    if not result["merged"] or result["bank_follower"] < 1:
+        raise AssertionError(f"bank path: no merge with an owner/follower pair: {result}")
+    if not all(rb["ok_on_base_after_merge"] > 0 for rb in result["robots"]):
+        raise AssertionError(f"bank path: a robot did not track the base map after the merge")
+    if result["bank_replay_kf"] < 1:
+        raise AssertionError("bank path: no follower keyframe was replayed")
+    ate = result["merged_ate_rmse_m"]
+    if ate is None or not np.isfinite(ate) or ate >= 0.6:
+        raise AssertionError(f"bank path: merged ATE {ate} m")
+    n_ok = sum(rb["frames_ok"] for rb in result["robots"])
+    if result["launches"] < 2 * n_ok:
+        raise AssertionError(f"{result['launches']} kernel launches for {n_ok} tracked frames")
     return result, split
 
 
@@ -941,6 +1165,7 @@ def main() -> int:
     del sess
     loop_result, _ = phase("loop_path", loop_path_phase, torch, ph, device)
     mm_result, _ = phase("multimap_path", multimap_path_phase, torch, ph, device)
+    bank_result, _ = phase("bank_path", bank_path_phase, torch, ph, device)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     print("phase_walls_s " + json.dumps(walls), flush=True)
@@ -952,7 +1177,8 @@ def main() -> int:
         "route": "cuda",
         "source": "orbslamm_tpu_torch/csrc/hamming.cu",
         "replaces": "orbslamm_tpu/ops/pallas/hamming.py:208",
-        "launches": main_launches + loop_result["launches"] + mm_result["launches"],
+        "launches": (main_launches + loop_result["launches"] + mm_result["launches"]
+                     + bank_result["launches"]),
         "max_abs_err": err,
         "ms": local["call_us"] / 1e3,
         "plain_ms": local["plain_ms"],
@@ -972,6 +1198,10 @@ def main() -> int:
           f"{mm_result['merged_ate_m']:.4f} m, {mm_result['fps_per_stream']:.2f} fps per stream "
           f"(p90 {mm_result['fps_per_stream_p90']:.2f}), loss {mm_result['loss_states']} on {smi}",
           flush=True)
+    print(f"bank path: seed {bank_result['seed']}, merges {bank_result['merges']}, merged ATE "
+          f"{bank_result['merged_ate_rmse_m']:.4f} m, {bank_result['fps_per_stream']:.2f} fps "
+          f"per stream (p90 {bank_result['fps_per_stream_p90']:.2f}), follower replays "
+          f"{bank_result['bank_replay_kf']}, states {bank_result['states']} on {smi}", flush=True)
     print(smi, flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,14 @@
 """State converters between numpy and this package's tensors.
 
 These carry the system's state across: a ``MapState``/``Features``/
-``TrackState``/``FrameSummary``/``PoseGraphProblem``/``BAProblem`` of the
-JAX package, after ``np.asarray`` on each field (or a dict of such arrays),
-becomes this package's NamedTuple on a named device, and back to a dict of
-numpy arrays that rebuilds the JAX NamedTuple with ``jax_type(**d)``. A
-``Vocabulary`` goes through a dict of its arrays plus ``branching`` and
-``depth``; the keyframe BoW database is one [K, n_words] float32 array.
-Field names, shapes and dtypes (int32, uint8, bool, float32) are the same
-on both sides.
+``TrackState``/``FrameSummary``/``ChunkKFEvents``/``PoseGraphProblem``/
+``BAProblem`` of the JAX package, after ``np.asarray`` on each field (or a
+dict of such arrays), becomes this package's NamedTuple on a named device,
+and back to a dict of numpy arrays that rebuilds the JAX NamedTuple with
+``jax_type(**d)``. A ``Vocabulary`` goes through a dict of its arrays
+plus ``branching`` and ``depth``; the keyframe BoW database is one
+[K, n_words] float32 array. Field names, shapes and dtypes (int32, uint8,
+bool, float32) are the same on both sides.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from orbslamm_tpu_torch.models.fused import FrameSummary, TrackState
+from orbslamm_tpu_torch.models.fused import ChunkKFEvents, FrameSummary, TrackState
 from orbslamm_tpu_torch.models.map_state import MapState
 from orbslamm_tpu_torch.ops import bow
 from orbslamm_tpu_torch.ops.ba import BAProblem, PoseGraphProblem
@@ -89,7 +89,12 @@ def ba_problem_from_numpy(p, *, device) -> BAProblem:
     return _tuple_from_numpy(BAProblem, p, device)
 
 
-frame_summary_to_numpy = pose_graph_to_numpy = ba_problem_to_numpy = _tuple_to_numpy
+def chunk_kf_events_from_numpy(e, *, device) -> ChunkKFEvents:
+    return _tuple_from_numpy(ChunkKFEvents, e, device)
+
+
+frame_summary_to_numpy = chunk_kf_events_to_numpy = _tuple_to_numpy
+pose_graph_to_numpy = ba_problem_to_numpy = _tuple_to_numpy
 
 
 def vocabulary_from_numpy(v, *, device) -> bow.Vocabulary:

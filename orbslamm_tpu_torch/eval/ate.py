@@ -33,6 +33,36 @@ def associate(
     return np.asarray(out_e, np.int64), np.asarray(out_g, np.int64)
 
 
+def align_trajectory(
+    est_xyz: np.ndarray,
+    gt_xyz: np.ndarray,
+    align: str = "sim3",
+) -> np.ndarray:
+    """``est_xyz`` [N, 3] moved onto ``gt_xyz`` [N, 3] by the closed-form
+    fit: "sim3" (monocular — scale solved), "se3", or "none"."""
+    est = np.asarray(est_xyz, np.float64)
+    gt = np.asarray(gt_xyz, np.float64)
+    if align == "none":
+        return est
+    mu_e = est.mean(0)
+    mu_g = gt.mean(0)
+    ec = est - mu_e
+    gc = gt - mu_g
+    cov = gc.T @ ec / len(est)
+    U, D, Vt = np.linalg.svd(cov)
+    S = np.eye(3)
+    if np.linalg.det(U) * np.linalg.det(Vt) < 0:
+        S[2, 2] = -1.0
+    R = U @ S @ Vt
+    if align == "sim3":
+        var = (ec * ec).sum() / len(est)
+        s = float((D * np.diag(S)).sum() / max(var, 1e-12))
+    else:
+        s = 1.0
+    t = mu_g - s * R @ mu_e
+    return s * est @ R.T + t
+
+
 def ate_rmse(
     est_xyz: np.ndarray,
     gt_xyz: np.ndarray,
@@ -43,29 +73,9 @@ def ate_rmse(
     est_xyz, gt_xyz: [N, 3] associated positions.
     align: "sim3" (monocular — scale solved), "se3", or "none".
     """
-    est = np.asarray(est_xyz, np.float64)
-    gt = np.asarray(gt_xyz, np.float64)
-    if len(est) < 3:
+    if len(est_xyz) < 3:
         return float("inf")
-    if align != "none":
-        mu_e = est.mean(0)
-        mu_g = gt.mean(0)
-        ec = est - mu_e
-        gc = gt - mu_g
-        cov = gc.T @ ec / len(est)
-        U, D, Vt = np.linalg.svd(cov)
-        S = np.eye(3)
-        if np.linalg.det(U) * np.linalg.det(Vt) < 0:
-            S[2, 2] = -1.0
-        R = U @ S @ Vt
-        if align == "sim3":
-            var = (ec * ec).sum() / len(est)
-            s = float((D * np.diag(S)).sum() / max(var, 1e-12))
-        else:
-            s = 1.0
-        t = mu_g - s * R @ mu_e
-        est = s * est @ R.T + t
-    err = est - gt
+    err = align_trajectory(est_xyz, gt_xyz, align) - np.asarray(gt_xyz, np.float64)
     return float(np.sqrt((err * err).sum(axis=1).mean()))
 
 

@@ -1,15 +1,18 @@
-"""The per-frame tracking+mapping step and its chunked form (port of the
-monocular, synchronous parts of orbslamm_tpu/models/fused.py).
+"""The per-frame tracking+mapping step and its chunked forms (port of
+orbslamm_tpu/models/fused.py).
 
     motion-model track -> local-map track -> keyframe decision
     -> (keyframe insert + mapping pipeline [+ BoW row + loop-candidate scan])
     -> state update + summary
 
 The JAX package keeps the keyframe decision on the device under
-``lax.cond`` and scans the chunk with ``lax.scan``. Here the decision is
-read on the host — one ``.item()`` per frame — and the chunk is a Python
-loop over frames; extraction runs per frame. Every tensor shape stays
-fixed, so the step can later be captured in a CUDA graph.
+``lax.cond`` and scans the chunk with ``lax.scan``. Here the synchronous
+chunk reads the decision on the host — one ``.item()`` per frame — and is a
+Python loop over frames; extraction runs per frame. The deferred chunk
+(``chunk_deferred``, the robot-parallel bank's body) tracks a 4-frame
+segment with the decisions queued on the device, reads the queue with one
+host read per segment and then maps the queued keyframes. Every tensor
+shape stays fixed, so the step can later be captured in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -63,6 +66,17 @@ class FrameSummary(NamedTuple):
     loop_min_score: torch.Tensor | None = None  # minScore normalizer (f32)
 
 
+class ChunkKFEvents(NamedTuple):
+    """Keyframe events queued by a deferred-mapping chunk (``chunk_deferred``):
+    mapping for these frames ran in the segment's phase B, after its
+    tracking. ``KMAX`` entries per segment."""
+
+    j: torch.Tensor  # [E] int32 frame index within the chunk, -1 = empty entry
+    slot: torch.Tensor  # [E] int32 keyframe slot (0 in an empty entry)
+    loop_scores: torch.Tensor | None = None  # [E, K], -1 in an empty entry
+    loop_min_score: torch.Tensor | None = None  # [E]
+
+
 def _insert(cfg, m, ind, feats, feat_lm, T_cw, frame_id, timestamp, slot, K):
     """Keyframe insert + the full mapping pipeline with the carried
     indicator (triangulate -> fuse -> local BA -> culls)."""
@@ -90,12 +104,19 @@ def _bow_insert(cfg, m, ind, kf_bow, voc, feats, slot):
 
 
 def frame_body(cfg: SlamConfig, m: ms.MapState, ts: TrackState, feats: Features,
-               frame_id, timestamp, K, kf_bow=None, voc=None, allow_kf=True):
+               frame_id, timestamp, K, kf_bow=None, voc=None, allow_kf=True,
+               deferred=False, can_kf=True):
     """One tracked frame. Returns (map, TrackState, FrameSummary), or
     (map, TrackState, kf_bow, FrameSummary) when a vocabulary is given:
     then an inserted keyframe's BoW row goes into ``kf_bow`` and the summary
     carries its loop-candidate scan. ``allow_kf`` False is localization
-    mode: track against the frozen map, never insert a keyframe."""
+    mode: track against the frozen map, never insert a keyframe.
+
+    ``deferred``: make the keyframe decision only, gated by ``can_kf`` (a
+    device bool: the chunk's event queue has room), and insert nothing; the
+    frame then reads nothing back to the host. Returns (map, TrackState,
+    FrameSummary without loop scores, the frame's landmark associations) so
+    that ``chunk_deferred`` maps the queued keyframes afterwards."""
     dev = K.device
     T_pred = ts.velocity @ ts.last_T
     with stage("track.motion_model"):
@@ -133,15 +154,18 @@ def frame_body(cfg: SlamConfig, m: ms.MapState, ts: TrackState, feats: Features,
     need_kf &= bool(allow_kf)
     # never mint a keyframe from a wide-window recovery frame
     need_kf &= ~weak
+    if deferred:
+        # backpressure: the chunk's event queue is full (Tracking.cc:1049)
+        need_kf &= can_kf
     slot = ts.n_kf
 
     ind = ts.obs_ind
-    with_bow = voc is not None
+    with_bow = voc is not None and not deferred
     if with_bow:
         lscores = torch.full((cfg.capacity.max_keyframes,), -1.0, dtype=torch.float32,
                              device=dev)
         lmin = torch.zeros((), dtype=torch.float32, device=dev)
-    if need_kf.item():  # the frame's one host sync
+    if not deferred and need_kf.item():  # the frame's one host sync
         m, ind = _insert(cfg, m, ind, feats, r2.feat_lm, r2.T_cw, frame_id,
                          timestamp, slot, K)
         if with_bow:
@@ -171,14 +195,19 @@ def frame_body(cfg: SlamConfig, m: ms.MapState, ts: TrackState, feats: Features,
         n_kf=torch.where(need_kf, ts.n_kf + 1, ts.n_kf),
         lost=lost_next,
         obs_ind=ind,
-        # refreshed from the post-mapping map: local BA refined the new pose
-        last_kf_T=torch.where(need_kf, m.kf_pose[slot], ts.last_kf_T),
+        # refreshed from the post-mapping map, where local BA refined the
+        # new pose; the deferred body has not mapped it yet (its phase B
+        # re-syncs the pose after mapping)
+        last_kf_T=torch.where(need_kf, T_new if deferred else m.kf_pose[slot],
+                              ts.last_kf_T),
     )
     summary = FrameSummary(T_cw=T_new, n_inliers=r2.n_inliers, tracking_ok=ok,
                            new_kf=need_kf, kf_slot=slot, ref_slot=ref_slot,
                            T_rel=T_rel,
                            loop_scores=lscores if with_bow else None,
                            loop_min_score=lmin if with_bow else None)
+    if deferred:
+        return m, ts_next, summary, r2.feat_lm
     if with_bow:
         return m, ts_next, kf_bow, summary
     return m, ts_next, summary
@@ -208,6 +237,91 @@ def make_frame_step(cfg: SlamConfig, extract_fn, K: torch.Tensor):
 def _stack(summaries) -> FrameSummary:
     return FrameSummary(*(None if xs[0] is None else torch.stack(xs)
                           for xs in zip(*summaries)))
+
+
+# frames per segment of the deferred chunk: a keyframe minted in a segment
+# is mapped, and its landmarks trackable, by the next segment
+SEGMENT = 4
+# keyframe decisions a segment queues for its phase B; a full queue mints
+# no keyframe (backpressure)
+KMAX = 2
+
+
+def chunk_deferred(cfg: SlamConfig, m, ts: TrackState, kf_bow, voc, feats_all, frame_ids,
+                   timestamps, K, allow_kf=True):
+    """The segmented two-phase chunk of the robot-parallel bank (the JAX
+    package's ``_chunk_body_deferred``). The chunk is cut into segments of
+    ``SEGMENT`` frames. Phase A tracks a segment with the deferred frame
+    body and queues at most ``KMAX`` keyframe decisions on the device
+    (backpressure: a full queue mints no keyframe). One host read per
+    segment then fetches the queue, and phase B inserts the queued
+    keyframes in order through the mapping pipeline (and, with a
+    vocabulary, their BoW rows and loop scans). An earlier event's culling
+    can free slots that a later event's associations still name, so phase B
+    keeps only associations to landmarks alive at its start and now. Frames
+    track against the map as of their segment's start, as the reference's
+    asynchronous LocalMapping consumes keyframes (LocalMapping.cc:114-126).
+
+    ``feats_all``: the chunk's extracted Features, one per frame. Returns
+    (m, ts, kf_bow, FrameSummary stacked along dim 0, ChunkKFEvents over all
+    segments)."""
+    C = len(feats_all)
+    seg_len = min(SEGMENT, C)
+    if C % seg_len:
+        raise ValueError(f"chunk size {C} is not a multiple of the segment length {seg_len}")
+    dev = K.device
+    with_bow = voc is not None
+    queue_pos = torch.arange(KMAX, device=dev)
+    no_scores = torch.full((cfg.capacity.max_keyframes,), -1.0, dtype=torch.float32, device=dev)
+    summaries, ev_j_all, ev_slot_all, ev_scores, ev_min = [], [], [], [], []
+    for lo in range(0, C, seg_len):
+        ev_n = torch.zeros((), dtype=torch.int32, device=dev)
+        ev_j = torch.full((KMAX,), -1, dtype=torch.int32, device=dev)
+        ev_slot = torch.zeros((KMAX,), dtype=torch.int32, device=dev)
+        seg, feat_lm = [], []
+        for j in range(lo, lo + seg_len):
+            m, ts, s, fl = frame_body(cfg, m, ts, feats_all[j], frame_ids[j], timestamps[j], K,
+                                      allow_kf=allow_kf, deferred=True, can_kf=ev_n < KMAX)
+            at = (queue_pos == ev_n) & s.new_kf
+            ev_j = torch.where(at, j, ev_j)
+            ev_slot = torch.where(at, s.kf_slot, ev_slot)
+            ev_n = ev_n + s.new_kf.to(torch.int32)
+            seg.append(s)
+            feat_lm.append(fl)
+        # the segment's one host read: queue length, queue, slot frontier
+        head = torch.cat([ev_n[None], ts.n_kf[None], ev_j, ev_slot]).tolist()
+        n_ev, n_kf = head[0], head[1]
+        js, slots = head[2:2 + KMAX], head[2 + KMAX:]
+        lm_valid_start = m.lm_valid
+        ind = ts.obs_ind
+        for e in range(KMAX):
+            if e >= n_ev:  # an empty entry inserts nothing (an insert changes the map)
+                if with_bow:
+                    ev_scores.append(no_scores)
+                    ev_min.append(torch.zeros((), dtype=torch.float32, device=dev))
+                continue
+            j = js[e]
+            fl = feat_lm[j - lo]
+            safe = torch.clamp_min(fl, 0)
+            fl = torch.where((fl >= 0) & lm_valid_start[safe] & m.lm_valid[safe], fl,
+                             torch.full_like(fl, -1))
+            m, ind = _insert(cfg, m, ind, feats_all[j], fl, seg[j - lo].T_cw, frame_ids[j],
+                             timestamps[j], slots[e], K)
+            if with_bow:
+                kf_bow, sc, mn = _bow_insert(cfg, m, ind, kf_bow, voc, feats_all[j], slots[e])
+                ev_scores.append(sc)
+                ev_min.append(mn)
+        # later frames' T_rel compose against the newest keyframe's pose as
+        # phase B's local BA refined it
+        ts = ts._replace(obs_ind=ind, last_kf_T=m.kf_pose[max(n_kf - 1, 0)])
+        summaries += seg
+        ev_j_all.append(ev_j)
+        ev_slot_all.append(ev_slot)
+    events = ChunkKFEvents(
+        j=torch.cat(ev_j_all), slot=torch.cat(ev_slot_all),
+        loop_scores=torch.stack(ev_scores) if with_bow else None,
+        loop_min_score=torch.stack(ev_min) if with_bow else None)
+    return m, ts, kf_bow, _stack(summaries), events
 
 
 def make_chunk_step(cfg: SlamConfig, extract_fn, K: torch.Tensor, with_bow: bool = False):

@@ -223,10 +223,9 @@ class MapContext:
         self._gba_cost_pending = None
         self.gba_slices_run = 0
         self.merged_into: MapContext | None = None  # set when absorbed by a merge
-        # (T_anchor_before, T_anchor_after) of the latest merge correction,
-        # for rebasing device tracking states through the map movement (the
-        # robot-parallel StreamBank's shared refresh, ROADMAP step 14; read
-        # nowhere yet)
+        # (T_anchor_before, T_anchor_after) of the latest merge correction:
+        # the robot-parallel StreamBank rebases its robots' tracking states
+        # through it (parallel/streams.py, its merge adoption and refresh)
         self.last_merge_rebase = None
 
     def _alloc_bow(self):

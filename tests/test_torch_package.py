@@ -3,7 +3,8 @@ JAX package, its copies of the JAX package's numpy-only modules (config,
 synthetic sequences, ATE) and generators are exact, its converters carry a
 map across both ways, the CPU matcher never launches the CUDA kernel, the
 paths of earlier steps that once were refused now run, and the paths the
-port does not have yet (stereo and RGB-D) are refused rather than skipped."""
+port does not have yet (stereo and RGB-D, the bank's device mesh) are
+refused rather than skipped."""
 
 import ast
 import dataclasses
@@ -73,6 +74,7 @@ def test_port_never_imports_jax():
                                                multimap, system, tracking)
         from orbslamm_tpu_torch.ops import ba, bow, geometry, matching, orb, ransac
         from orbslamm_tpu_torch.ops.cuda import hamming
+        from orbslamm_tpu_torch.parallel import streams
         from orbslamm_tpu_torch.utils import trace
         from orbslamm_tpu_torch.io.synthetic import make_sequence
         from orbslamm_tpu_torch.eval import ate
@@ -386,6 +388,12 @@ def test_paths_the_slice_lacks_are_refused():
     # stereo and RGB-D
     with pytest.raises(NotImplementedError, match="step 13"):
         MonocularSession(dataclasses.replace(CFG, sensor="stereo"), device="cpu")
+    # the robot-parallel bank runs on one device; sharding its robot axis
+    # over a device mesh is step 14b
+    from orbslamm_tpu_torch.parallel.streams import StreamBank
+    with pytest.raises(NotImplementedError, match="step 14b"):
+        StreamBank(CFG, [sess.tracker], device="cpu", mesh=object())
+    assert StreamBank(CFG, [sess.tracker], device="cpu").n_streams == 1
     # the multi-map entry points: a MultiMapper, the cross-map scan and
     # Sim3 between the session's map and itself, and the adoption of a
     # merged map with the identity Sim3
