@@ -70,6 +70,40 @@ non-zero and no phase failure is caught:
    merged ATE, states) and times the bank's, merge, loop and global-BA
    stages per call.
 
+10. the stereo path: ``StereoSession(cfg, device="cuda")`` at ORB-SLAM2's
+    KITTI stereo setting (examples/settings/KITTI00-02.yaml read with the
+    port's ``load_settings``: 1241x376, fx 718.856, 2000 features, 8
+    levels, 2048 keypoint slots; the rig of ORB-SLAM2's
+    Examples/Stereo/KITTI00-02.yaml, bf 386.1448 and ThDepth 35, close
+    depth 18.8 m; the main path's 128 keyframes and 8192 landmarks) on the
+    synthetic forward sequence rendered as a stereo pair, frames 0-63,
+    frame by frame on the host tracking path; then one global BA with the
+    stereo rows on the final map (its cost must be finite);
+11. the RGB-D path: ``RGBDSession(cfg, device="cuda")`` at ORB-SLAM2's TUM
+    fr2 RGB-D setting (the main path's configuration with the rig of
+    ORB-SLAM2's Examples/RGB-D/TUM2.yaml: bf 40, ThDepth 40,
+    DepthMapFactor 5208, close depth 3.07 m) on the synthetic strafe
+    sequence with its depth map in raw units (metres x 5208, float32),
+    frames 0-63.
+    Each asserts initialization within the first 3 frames, >= 90% of the
+    frames after it tracked, >= 3 keyframes, landmarks spawned from depth,
+    >= 2 kernel launches per tracked frame, an SE3-aligned ATE (no scale
+    fitted) below 0.5 m and below the ATE of a camera that never moves
+    (the ground truth's spread about its mean), a Sim3-aligned ATE below a
+    quarter of that spread (the trajectory's shape) and, for RGB-D, the
+    Sim3 fit's scale within a factor of 1.5 of 1; it prints the
+    travelled-distance scale error, the fps over the frames after
+    initialization and the ms per call of its stages (``stereo.*``/
+    ``rgbd.*``, ``orb.extract``, ``track.*``, ``ba.pose_optimize``,
+    ``mapping.*``), timed with a synchronized clock per stage throughout.
+    The travelled-distance scale error is not asserted (PERF.md, over
+    seeds 1-8 through tools/depth_sweep.py): the stereo trajectory ends
+    85-89% short in both packages on every seed (with the rendered depth in
+    place of the stereo association, 1-9%), and the RGB-D error is under
+    15% on 5 of 8 seeds in the JAX package and 4 of 8 in the port: within
+    0.2 of each other seed by seed on seeds 1-6, while 7 and 8 split in
+    opposite directions.
+
 Each phase prints its wall time. The last line is the JSON contract line;
 the line before it holds the kernels' record. Needs the port package beside
 it (its own config, synthetic-sequence and ATE modules included) and the
@@ -146,6 +180,24 @@ STAGE_PREFIXES = ("orb", "track", "ba", "matching", "mapping", "bow", "loop", "g
 # the keyframe-rate events of the loop path, timed per call
 LOOP_STAGES = ("bow", "loop", "gba", "reloc")
 VOCAB = REPO / "orbslamm_tpu" / "data" / "vocab_10x4.npz"
+# the stereo and RGB-D paths: ORB-SLAM2's KITTI 00-02 settings (the file
+# holds no image size: KITTI 00-02 frames are 1241x376) with the stereo rig
+# of ORB-SLAM2's Examples/Stereo/KITTI00-02.yaml, and ORB-SLAM2's TUM fr2
+# RGB-D rig (Examples/RGB-D/TUM2.yaml); the first DEPTH_FRAMES frames of
+# bench.py's 248-frame sequence, forward (the KITTI analogue) and strafe
+# (the fr2 desk/xyz analogue), seed DEPTH_SEED
+KITTI_SETTINGS = REPO / "examples" / "settings" / "KITTI00-02.yaml"
+KITTI_SIZE = (1241, 376)
+KITTI_STEREO_RIG = dict(bf=386.1448, th_depth=35.0)
+TUM2_RGBD_RIG = dict(bf=40.0, th_depth=40.0, depth_map_factor=5208.0)
+DEPTH_FRAMES, DEPTH_SEED = 64, 7
+# their trajectory's shape: the Sim3-aligned ATE below this share of a
+# frozen camera's (the ground truth's spread about its mean); the RGB-D
+# map's scale: the Sim3 fit's scale within this factor of 1 (a depth unit
+# or factor that is off by as much fails)
+DEPTH_SIM3_SHARE = 0.25
+RGBD_SCALE_FACTOR = 1.5
+DEPTH_STAGES = ("stereo", "rgbd", "orb", "track", "ba", "mapping")
 
 
 def bench_cfg():
@@ -1080,6 +1132,188 @@ def _ate_split(est, gt, tags, merge_fid):
     return out
 
 
+def kitti_stereo_cfg():
+    """ORB-SLAM2's KITTI 00-02 settings through the port's load_settings,
+    on bench.py's configuration (128 keyframes, 8192 landmarks, pixel noise
+    1.2), with ORB-SLAM2's KITTI stereo rig."""
+    import dataclasses
+
+    from orbslamm_tpu_torch.utils.config import load_settings
+
+    base = bench_cfg()
+    w, h = KITTI_SIZE
+    base = dataclasses.replace(base, camera=dataclasses.replace(base.camera, width=w, height=h))
+    cfg = load_settings(KITTI_SETTINGS, base=base)
+    return dataclasses.replace(cfg, camera=dataclasses.replace(cfg.camera, **KITTI_STEREO_RIG))
+
+
+def tum2_rgbd_cfg():
+    """bench.py's single-stream configuration (TUM fr2's pinhole camera)
+    with ORB-SLAM2's TUM2 RGB-D rig."""
+    import dataclasses
+
+    cfg = bench_cfg()
+    return dataclasses.replace(cfg, camera=dataclasses.replace(cfg.camera, **TUM2_RGBD_RIG))
+
+
+def depth_metrics(recs, ts, est, seq, fps) -> dict:
+    """The outcome of a stereo or RGB-D session from its frame records and
+    its trajectory (``frame_trajectory()``) against ``seq``'s ground truth:
+    the frame of initialization, the frames tracked after it, the ATE under
+    SE3 alignment (no scale fitted) and under Sim3, the Sim3 fit's scale
+    (ground truth per estimated metre), the travelled distance (first to
+    last pose) and its relative error, and ``frozen_se3_m``: the SE3 ATE of
+    a camera that never leaves one pose, the RMS spread of the ground-truth
+    centres about their mean (a tracker that moves at too small a scale
+    scores between zero and this)."""
+    from orbslamm_tpu_torch.eval.ate import align_trajectory, ate_from_poses, ate_rmse
+
+    def centers(T):
+        return -np.einsum("nji,nj->ni", T[:, :3, :3], T[:, :3, 3])
+
+    init = next((i for i, r in enumerate(recs) if r.state == "OK"), None)
+    after = recs[init + 1:] if init is not None else []
+    gt = seq.poses_cw[[int(round(t * fps)) for t in ts]]
+    out = {"init_frame": init, "frames_after_init": len(after),
+           "frames_ok": sum(r.state == "OK" for r in after)}
+    if len(est) < 3:
+        return {**out, "ate_se3_m": None, "ate_sim3_m": None, "sim3_scale": None,
+                "travel_est_m": None, "travel_gt_m": None, "scale_err": None,
+                "frozen_se3_m": None}
+    ce, cg = centers(np.asarray(est, np.float64)), centers(np.asarray(gt, np.float64))
+    de, dg = ce - ce.mean(0), cg - cg.mean(0)
+    travel_est = float(np.linalg.norm(ce[-1] - ce[0]))
+    travel_gt = float(np.linalg.norm(cg[-1] - cg[0]))
+    aligned = align_trajectory(ce, cg, "sim3")
+    scale = float(np.sqrt(((aligned - aligned.mean(0)) ** 2).sum(1).mean()
+                          / max((de ** 2).sum(1).mean(), 1e-30)))
+    return {**out,
+            "ate_se3_m": float(ate_from_poses(est, gt, align="se3")),
+            "ate_sim3_m": float(ate_rmse(ce, cg, align="sim3")),
+            "sim3_scale": scale,
+            "travel_est_m": travel_est, "travel_gt_m": travel_gt,
+            "scale_err": abs(travel_est / travel_gt - 1.0) if travel_gt > 0 else None,
+            "frozen_se3_m": float(np.sqrt((dg ** 2).sum(1).mean()))}
+
+
+def _depth_run(torch, ph, device, sensor, cfg, seq, n_frames):
+    """Stream ``n_frames`` frames of ``seq`` frame by frame through a
+    StereoSession (``sensor == "stereo"``) or an RGBDSession, the depth in
+    raw units (``depth_map_factor`` per metre). Returns (result, split,
+    session)."""
+    from orbslamm_tpu_torch.models.system import RGBDSession, StereoSession
+    from orbslamm_tpu_torch.utils.trace import StageTimer
+
+    ph.launches = 0  # counts from here on are this path's
+    ph.launches_by_shape.clear()
+    factor = cfg.camera.depth_map_factor
+    with StageTimer(device, prefixes=DEPTH_STAGES) as timer:
+        if sensor == "stereo":
+            sess = StereoSession(cfg, device=device)
+            step = lambda i: sess.process_frame(seq.images[i], seq.images_right[i],  # noqa: E731
+                                                float(seq.timestamps[i]))
+        else:
+            sess = RGBDSession(cfg, device=device)
+            raw = seq.depths[:n_frames] * np.float32(factor)  # float32: past 12.58 m x 5208
+            step = lambda i: sess.process_frame(seq.images[i], raw[i],  # noqa: E731
+                                                float(seq.timestamps[i]))
+        init_at, lm_at_init = None, 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n_frames):
+            rec = step(i)
+            if init_at is None and rec.state == "OK":
+                torch.cuda.synchronize()
+                t_init = time.perf_counter()
+                init_at, lm_at_init = i, int(sess.map.lm_valid.sum())
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+    ts, est = sess.frame_trajectory()
+    met = depth_metrics(sess.frames, ts, est, seq, cfg.camera.fps)
+    result = {
+        "sensor": sensor, "frames": n_frames, "image": [cfg.camera.width, cfg.camera.height],
+        "camera": {k: getattr(cfg.camera, k) for k in
+                   ("fx", "bf", "th_depth", "depth_map_factor", "close_depth")},
+        "orb": {"n_features": cfg.orb.n_features, "n_levels": cfg.orb.n_levels,
+                "max_keypoints": cfg.orb.max_keypoints},
+        **met,
+        "landmarks_at_init": lm_at_init, "keyframes": sess.n_kf,
+        "keyframes_valid": int(sess.map.kf_valid.sum()),
+        "landmarks": int(sess.map.lm_valid.sum()),
+        "depth_landmark_calls": timer.calls["mapping.depth_landmarks"],
+        "stereo_observations": int((sess.map.kf_ur[sess.map.kf_valid] >= 0).sum()),
+        "wall_s": t_end - t0,
+        "fps": met["frames_after_init"] / (t_end - t_init) if met["frames_after_init"] else None,
+        "launches": ph.launches,
+        "launches_per_tracked_frame": ph.launches / max(1, met["frames_ok"]),
+        "launches_by_shape": _by_shape(ph.launches_by_shape),
+    }
+    split = {k: {"calls": timer.calls[k], "ms": v * 1e3, "ms_per_call": v * 1e3 / timer.calls[k]}
+             for k, v in sorted(timer.seconds.items())}
+    return result, split, sess
+
+
+def depth_path_phase(torch, ph, device, sensor):
+    """The stereo (KITTI) or RGB-D (TUM fr2) path: ``_depth_run`` over the
+    first DEPTH_FRAMES frames of bench.py's sequence, then its asserts; the
+    stereo path ends with one global BA with stereo rows on its final map."""
+    from orbslamm_tpu_torch.io.synthetic import make_sequence
+
+    if sensor == "stereo":
+        cfg = kitti_stereo_cfg()
+        seq = make_sequence(n_frames=SEQ_FRAMES, n_points=2500, cam=cfg.camera, seed=DEPTH_SEED,
+                            motion="forward", stereo=True)
+    else:
+        cfg = tum2_rgbd_cfg()
+        seq = make_sequence(n_frames=SEQ_FRAMES, n_points=2500, cam=cfg.camera, seed=DEPTH_SEED,
+                            motion="strafe", with_depth=True)
+    result, split, sess = _depth_run(torch, ph, device, sensor, cfg, seq, DEPTH_FRAMES)
+    result["sequence"] = {"motion": "forward" if sensor == "stereo" else "strafe",
+                          "seed": DEPTH_SEED, "frames": SEQ_FRAMES}
+    if sensor == "stereo":
+        from orbslamm_tpu_torch.models import loop_closing as lc
+
+        mc = sess.tracker.mapctx
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, cost = lc.global_bundle_adjust(cfg, sess.map, iters=mc.gba_slice_iters,
+                                          cg_iters=mc.gba_cg_iters)
+        cost = float(cost)
+        result["gba"] = {"ms": (time.perf_counter() - t0) * 1e3, "cost": cost,
+                         "iters": mc.gba_slice_iters, "cg_iters": mc.gba_cg_iters}
+    print(f"{sensor}_path " + json.dumps(result), flush=True)
+    print(f"{sensor}_stage_split " + json.dumps(split), flush=True)
+    print(f"{sensor} path frames: " + " ".join(f"{f.state[0]}{f.n_inliers}" for f in sess.frames),
+          flush=True)
+    if result["init_frame"] is None or result["init_frame"] > 2:
+        raise AssertionError(f"{sensor} path: no initialization within 3 frames")
+    n_after, n_ok = result["frames_after_init"], result["frames_ok"]
+    if n_ok < 0.9 * n_after:
+        raise AssertionError(f"{sensor} path: tracked {n_ok} of {n_after} frames")
+    if result["keyframes"] < 3:
+        raise AssertionError(f"{sensor} path: only {result['keyframes']} keyframes")
+    if result["landmarks_at_init"] < cfg.tracking.min_matches_init or \
+            result["depth_landmark_calls"] < result["keyframes"]:
+        raise AssertionError(f"{sensor} path: landmarks from depth {result['landmarks_at_init']} "
+                             f"at init, {result['depth_landmark_calls']} keyframe calls")
+    if result["launches"] < 2 * n_ok:
+        raise AssertionError(f"{sensor} path: {result['launches']} kernel launches for {n_ok} "
+                             "tracked frames")
+    ate, frozen = result["ate_se3_m"], result["frozen_se3_m"]
+    if ate is None or not np.isfinite(ate) or ate >= min(0.5, frozen):
+        raise AssertionError(f"{sensor} path: SE3 ATE {ate} m (a camera that never moves: "
+                             f"{frozen} m)")
+    if not result["ate_sim3_m"] < DEPTH_SIM3_SHARE * frozen:
+        raise AssertionError(f"{sensor} path: Sim3 ATE {result['ate_sim3_m']} m, not below "
+                             f"{DEPTH_SIM3_SHARE} x {frozen} m")
+    if sensor == "rgbd" and not (1 / RGBD_SCALE_FACTOR < result["sim3_scale"]
+                                 < RGBD_SCALE_FACTOR):
+        raise AssertionError(f"rgbd path: Sim3 scale {result['sim3_scale']}")
+    if sensor == "stereo" and not np.isfinite(result["gba"]["cost"]):
+        raise AssertionError(f"stereo path: global BA cost {result['gba']['cost']}")
+    return result, split
+
+
 def bank_path_phase(torch, ph, device):
     """The bank path: bench.py's ``bench_multi`` exactly, through the port's
     ``StreamBank``, on bench.py's configuration (``multimap_cfg``). Two
@@ -1166,6 +1400,8 @@ def main() -> int:
     loop_result, _ = phase("loop_path", loop_path_phase, torch, ph, device)
     mm_result, _ = phase("multimap_path", multimap_path_phase, torch, ph, device)
     bank_result, _ = phase("bank_path", bank_path_phase, torch, ph, device)
+    stereo_result, _ = phase("stereo_path", depth_path_phase, torch, ph, device, "stereo")
+    rgbd_result, _ = phase("rgbd_path", depth_path_phase, torch, ph, device, "rgbd")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     print("phase_walls_s " + json.dumps(walls), flush=True)
@@ -1178,7 +1414,8 @@ def main() -> int:
         "source": "orbslamm_tpu_torch/csrc/hamming.cu",
         "replaces": "orbslamm_tpu/ops/pallas/hamming.py:208",
         "launches": (main_launches + loop_result["launches"] + mm_result["launches"]
-                     + bank_result["launches"]),
+                     + bank_result["launches"] + stereo_result["launches"]
+                     + rgbd_result["launches"]),
         "max_abs_err": err,
         "ms": local["call_us"] / 1e3,
         "plain_ms": local["plain_ms"],
@@ -1202,6 +1439,13 @@ def main() -> int:
           f"{bank_result['merged_ate_rmse_m']:.4f} m, {bank_result['fps_per_stream']:.2f} fps "
           f"per stream (p90 {bank_result['fps_per_stream_p90']:.2f}), follower replays "
           f"{bank_result['bank_replay_kf']}, states {bank_result['states']} on {smi}", flush=True)
+    for r in (stereo_result, rgbd_result):
+        print(f"{r['sensor']} path: init at frame {r['init_frame']}, {r['frames_ok']}/"
+              f"{r['frames_after_init']} frames, {r['keyframes']} keyframes, {r['fps']:.2f} fps, "
+              f"SE3 ATE {r['ate_se3_m']:.4f} m (frozen camera {r['frozen_se3_m']:.4f}), "
+              f"Sim3 ATE {r['ate_sim3_m']:.4f} m, scale error {r['scale_err']:.4f}, "
+              f"{r['launches_per_tracked_frame']:.2f} launches per tracked frame on {smi}",
+              flush=True)
     print(smi, flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

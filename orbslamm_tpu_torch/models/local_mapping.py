@@ -9,7 +9,9 @@ JAX package. The pair matches of triangulation and fuse go through the
 fused matcher (``ops/cuda/hamming.py``).
 
 Scalar indices such as neighbour slots stay on the device: no stage
-branches on a tensor value.
+branches on a tensor value. A stereo or RGB-D keyframe also spawns
+landmarks straight from its depth (``create_depth_landmarks``), and with a
+stereo rig (``camera.bf > 0``) local BA carries the stereo rows.
 """
 
 from __future__ import annotations
@@ -144,6 +146,51 @@ def _triangulate(cfg, m, kf_slot, ind, n_neighbors: int, max_new: int):
     return m, ind
 
 
+def create_depth_landmarks(cfg: SlamConfig, m: ms.MapState, kf_slot, depth,
+                           max_new: int = 256, close_only: bool = True) -> ms.MapState:
+    """Spawn landmarks straight from stereo/RGB-D depth at keyframe
+    ``kf_slot`` (reference Tracking::CreateNewKeyFrame, stereo branch): its
+    unassociated features with depth below the close depth, closest first,
+    plus the 100 closest whatever their depth; with ``close_only=False``
+    every positive depth (Tracking::StereoInitialization). depth [M], -1
+    where unknown."""
+    kf_slot = torch.as_tensor(kf_slot, dtype=torch.int32, device=m.kf_pose.device)
+    with stage("mapping.depth_landmarks"):
+        return _create_depth_landmarks(cfg, m, kf_slot, depth, max_new, close_only)
+
+
+def _create_depth_landmarks(cfg, m, kf_slot, depth, max_new, close_only):
+    dev = depth.device
+    eligible = m.kf_feat_valid[kf_slot] & (m.kf_obs_lm[kf_slot] < 0) & (depth > 0)
+    close = depth < cfg.camera.close_depth if close_only else torch.ones_like(eligible)
+    # closest first (the reference sorts vDepthIdx by depth); equal depths
+    # go to the lowest feature slot, as with lax.top_k
+    key = torch.where(eligible, -depth, torch.full_like(depth, float("-inf")))
+    _, feat_idx = _top_k(key, max_new)
+    use = eligible[feat_idx] & (close[feat_idx]
+                                | (torch.arange(max_new, device=dev) < 100))
+
+    T = m.kf_pose[kf_slot]
+    Kinv = torch.linalg.inv_ex(m.kf_K[kf_slot])[0]
+    uv1 = torch.cat([m.kf_xy[kf_slot][feat_idx],
+                     torch.ones((max_new, 1), dtype=torch.float32, device=dev)], dim=-1)
+    Xc = depth[feat_idx][:, None] * (uv1 @ Kinv.T)
+    R, t = T[:3, :3], T[:3, 3]
+    Xw = (Xc - t) @ R  # R^T (Xc - t)
+    d_vec = Xw - (-R.T @ t)
+    dist = torch.linalg.norm(d_vec, dim=-1)
+    normal = d_vec / torch.clamp_min(dist[:, None], 1e-9)
+    sf = cfg.orb.scale_factor
+    dmax = dist * sf ** m.kf_level[kf_slot][feat_idx].to(torch.float32)
+    dmin = dmax / sf ** (cfg.orb.n_levels - 1)
+
+    slots = ms.free_lm_slots(m, max_new)
+    use = use & ~m.lm_valid[slots]  # a still-valid slot means the pool is full
+    m = ms.add_landmarks(m, slots, use, Xw, m.kf_desc[kf_slot][feat_idx], normal, dmin,
+                         dmax, kf_slot)
+    return m._replace(kf_obs_lm=ms.set_row_cols(m.kf_obs_lm, kf_slot, feat_idx, slots, use))
+
+
 def _local_ba(cfg, m, kf_slot, ind, window: int, n_fixed: int, iters: int):
     """Windowed Schur BA around the new keyframe (Optimizer.cc:475): the
     top-``window`` covisible keyframes are free, the next ``n_fixed`` are
@@ -166,11 +213,16 @@ def _local_ba(cfg, m, kf_slot, ind, window: int, n_fixed: int, iters: int):
     feat_ok = feat_ok & m.lm_valid[lm_idx]
     sigma2 = (cfg.tracking.pixel_noise
               * cfg.orb.scale_factor ** m.kf_level[win].to(torch.float32)) ** 2
+    # stereo edges (EdgeStereoSE3ProjectXYZ) ride along with a stereo rig
+    stereo = cfg.camera.bf > 0
     res = ba.bundle_adjust_window(
         T_cw=m.kf_pose[win], K=m.kf_K[win], cam_valid=win_ok, cam_fixed=fixed,
         points=m.lm_pos, point_valid=m.lm_valid, obs_point=lm_idx,
         obs_uv=m.kf_xy[win], obs_sigma2=sigma2,
         obs_valid=feat_ok & win_ok[:, None], iters=iters,
+        obs_ur=m.kf_ur[win] if stereo else None,
+        bf=torch.full((total,), cfg.camera.bf, dtype=torch.float32, device=dev)
+        if stereo else None,
     )
     m = m._replace(kf_pose=ms.set_rows(m.kf_pose, win, res.T_cw, win_ok & ~fixed),
                    lm_pos=res.points)

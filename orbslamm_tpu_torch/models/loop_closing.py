@@ -331,17 +331,15 @@ def global_bundle_adjust(cfg: SlamConfig, m: ms.MapState, iters: int = 10, cg_it
     """Full-map BA with the matrix-free Schur solver (GBA analog) on a
     compacted edge list: each keyframe's top-``obs_per_kf`` valid
     observation slots (lowest feature index first; the key is tie-free).
-    Returns (map, cost)."""
-    if cfg.camera.bf > 0:
-        raise NotImplementedError(
-            "stereo BA rows (ROADMAP queue 1, step 13) are not ported to orbslamm_tpu_torch yet")
+    With a stereo rig (``camera.bf > 0``) the edges carry their right-x
+    measurements. Returns (map, cost)."""
     K, Mfeat = m.kf_obs_lm.shape
     dev = m.kf_pose.device
     obs_lm = m.kf_obs_lm
     lm_idx = torch.clamp_min(obs_lm, 0)
     feat_ok = m.kf_feat_valid & (obs_lm >= 0) & m.kf_valid[:, None] & m.lm_valid[lm_idx.long()]
     sigma2 = (cfg.tracking.pixel_noise * cfg.orb.scale_factor ** m.kf_level.to(torch.float32)) ** 2
-    xy = m.kf_xy
+    xy, ur = m.kf_xy, m.kf_ur
     E_kf = min(obs_per_kf, Mfeat)
     if E_kf < Mfeat:
         key = feat_ok.to(torch.float32) * 2.0 - torch.arange(
@@ -351,6 +349,8 @@ def global_bundle_adjust(cfg: SlamConfig, m: ms.MapState, iters: int = 10, cg_it
         feat_ok = feat_ok.gather(1, sel)
         xy = xy.gather(1, sel[..., None].expand(-1, -1, 2))
         sigma2 = sigma2.gather(1, sel)
+        ur = ur.gather(1, sel)
+    stereo = cfg.camera.bf > 0
     obs_cam = torch.arange(K, dtype=torch.int32, device=dev)[:, None].expand(K, E_kf)
     prob = ba.BAProblem(
         T_cw=m.kf_pose, K=m.kf_K, cam_valid=m.kf_valid, cam_fixed=m.kf_fixed,
@@ -358,6 +358,8 @@ def global_bundle_adjust(cfg: SlamConfig, m: ms.MapState, iters: int = 10, cg_it
         obs_cam=obs_cam.reshape(-1), obs_point=lm_idx.reshape(-1).to(torch.int32),
         obs_uv=xy.reshape(-1, 2), obs_sigma2=sigma2.reshape(-1),
         obs_valid=feat_ok.reshape(-1),
+        obs_ur=ur.reshape(-1) if stereo else None,
+        bf=torch.full((K,), cfg.camera.bf, dtype=torch.float32, device=dev) if stereo else None,
     )
     res = ba.bundle_adjust_cg(prob, iters=iters, cg_iters=cg_iters)
     return m._replace(kf_pose=torch.where(m.kf_valid[:, None, None], res.T_cw, m.kf_pose),

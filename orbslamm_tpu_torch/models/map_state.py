@@ -215,7 +215,8 @@ def insert_keyframe(m: MapState, slot, T_cw, K_mat, feats: Features, obs_lm,
         kf_feat_valid=put(m.kf_feat_valid, feats.valid),
         kf_obs_lm=put(m.kf_obs_lm, torch.where(feats.valid, obs_lm,
                                                torch.full_like(obs_lm, -1))),
-        kf_ur=put(m.kf_ur, -1.0),
+        kf_ur=put(m.kf_ur, -1.0 if feats.u_right is None else torch.where(
+            feats.valid, feats.u_right, torch.full_like(feats.u_right, -1.0))),
         n_kf=torch.maximum(m.n_kf, slot + 1),
     )
 

@@ -14,11 +14,12 @@ orbslamm_tpu/models/system.py).
                    localization mode tracks without inserting keyframes.
                    The hooks ``on_keyframe``, ``reloc_on_loss`` and
                    ``auto_reset_young`` hand keyframe events and loss
-                   handling to a MultiMapper (models/multimap.py)
-  * MonocularSession — the single-robot facade
-
-Stereo and RGB-D raise ``NotImplementedError`` naming the ROADMAP step that
-brings them.
+                   handling to a MultiMapper (models/multimap.py).
+                   Stereo and RGB-D frames take the host-sequenced path:
+                   a one-keyframe bootstrap from depth, then ``_track``
+                   (motion model, local map, keyframe decision) with
+                   ``MapContext.insert_keyframe``'s stage-by-stage pipeline
+  * MonocularSession, StereoSession, RGBDSession — the single-robot facades
 """
 
 from __future__ import annotations
@@ -42,16 +43,10 @@ from orbslamm_tpu_torch.ops import bow
 from orbslamm_tpu_torch.ops import geometry as geo
 from orbslamm_tpu_torch.ops import orb as orb_ops
 from orbslamm_tpu_torch.ops import ransac
+from orbslamm_tpu_torch.ops import stereo as st
 from orbslamm_tpu_torch.ops.matching import _top_k
 from orbslamm_tpu_torch.ops.orb import Features
 from orbslamm_tpu_torch.utils.trace import stage
-
-_STEREO = "stereo and RGB-D sessions (ROADMAP queue 1, step 13)"
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported to orbslamm_tpu_torch yet")
-
 
 class TrackingState(enum.Enum):
     NO_IMAGES_YET = 0
@@ -240,6 +235,24 @@ class MapContext:
         self.map_id = MapContext._next_id
         MapContext._next_id += 1
         MapContext.registry()[self.map_id] = self
+
+    # -- keyframe insertion + mapping stages ------------------------------
+    def insert_keyframe(self, T_cw, K, feats: Features, feat_lm, frame_id, timestamp) -> int:
+        """Insert a keyframe and run the local-mapping pipeline on it, its
+        indicator built once (the host-sequenced path; the fused chunk
+        carries the indicator across keyframes). A stereo/RGB-D keyframe
+        first spawns its close landmarks from depth. Returns the slot."""
+        cfg = self.cfg
+        slot = self.n_kf
+        self.map = ms.insert_keyframe(self.map, slot, T_cw, K, feats, feat_lm, frame_id,
+                                      timestamp)
+        self.n_kf += 1
+        if feats.depth is not None:
+            # Tracking::CreateNewKeyFrame, stereo branch
+            self.map = lm_stage.create_depth_landmarks(cfg, self.map, slot, feats.depth)
+        self.map, _ = lm_stage.process_new_keyframe_cached(cfg, self.map, slot,
+                                                           ms.lm_indicator(self.map))
+        return slot
 
     # -- BoW database -----------------------------------------------------
     @staticmethod
@@ -432,8 +445,6 @@ class RobotTracker:
 
     def __init__(self, cfg: SlamConfig, mapctx: MapContext, name: str = "robot0", *,
                  device):
-        if cfg.sensor != "mono":
-            raise _not_ported(_STEREO)
         self.cfg = cfg
         self.name = name
         self.device = torch.device(device)
@@ -547,9 +558,13 @@ class RobotTracker:
         self._ts = None
 
     def _empty_feats(self) -> Features:
-        """All-invalid stand-in when no frame has been tracked yet."""
+        """All-invalid stand-in when no frame has been tracked yet (with the
+        stereo fields on a stereo/RGB-D tracker, so a tracking state keeps
+        one structure)."""
         M = self.cfg.orb.max_keypoints
         kw = dict(device=self.device)
+        no_depth = (torch.full((M,), -1.0, dtype=torch.float32, **kw)
+                    if self.cfg.sensor != "mono" else None)
         return Features(
             xy=torch.zeros((M, 2), dtype=torch.float32, **kw),
             xy_raw=torch.zeros((M, 2), dtype=torch.float32, **kw),
@@ -558,6 +573,8 @@ class RobotTracker:
             level=torch.zeros(M, dtype=torch.int32, **kw),
             desc=torch.zeros((M, 32), dtype=torch.uint8, **kw),
             valid=torch.zeros(M, dtype=torch.bool, **kw),
+            u_right=no_depth,
+            depth=None if no_depth is None else no_depth.clone(),
         )
 
     def _make_ts(self) -> fused.TrackState:
@@ -644,6 +661,37 @@ class RobotTracker:
         self._last_ref = (1, np.eye(4))  # this frame IS keyframe 1
         mc.update_bow_rows([0, 1])
 
+    def _try_initialize_depth(self, feats: Features, timestamp: float):
+        """Stereo/RGB-D bootstrap: one keyframe, landmarks unprojected from
+        every positive depth (Tracking::StereoInitialization); metric scale
+        comes from the sensor, no two-view init."""
+        cfg = self.cfg
+        n_depth = int((feats.valid & (feats.depth > 0)).sum())
+        if n_depth < cfg.tracking.min_matches_init:
+            return
+        mc = self.mapctx
+        Mfeat = feats.valid.shape[0]
+        eye = torch.eye(4, dtype=torch.float32, device=self.device)
+        no_obs = torch.full((Mfeat,), -1, dtype=torch.int32, device=self.device)
+        mc.map = ms.insert_keyframe(mc.map, 0, eye, self.K, feats, no_obs, self.frame_id,
+                                    timestamp, fixed=True)
+        mc.map = lm_stage.create_depth_landmarks(
+            cfg, mc.map, 0, feats.depth, max_new=min(Mfeat, cfg.capacity.max_landmarks),
+            close_only=False)
+        mc.n_kf = 1
+        self.T_cw = eye
+        self.last_T = eye
+        self.velocity = eye
+        self.last_feats = feats
+        self.last_lm = mc.map.kf_obs_lm[0]
+        self.last_kf_inliers = n_depth
+        self.peak_inliers_since_kf = n_depth
+        self.prev_inliers = 0
+        self.state = TrackingState.OK
+        self.frames_since_kf = 0
+        self._last_ref = (0, np.eye(4))  # this frame IS keyframe 0
+        mc.update_bow_row(0)
+
     # -- relocalization ----------------------------------------------------
     def _try_relocalize(self, feats: Features) -> int:
         """Relocalization with the keyframe database's group treatment
@@ -698,6 +746,61 @@ class RobotTracker:
         return 0
 
     # -- tracking ----------------------------------------------------------
+    def _track(self, feats: Features, timestamp: float) -> int:
+        """The host-sequenced tracking step: motion model (its inlier count
+        read on the host), local map, the collapse gate, then the keyframe
+        decision with the peak inlier count since the last keyframe, the
+        stage-by-stage keyframe pipeline, loop closing and the
+        ``on_keyframe`` hook. Returns the frame's inliers (0 when the
+        collapse gate rejects it)."""
+        cfg = self.cfg
+        mc = self.mapctx
+        with stage("track.motion_model"):
+            r1 = trk.track_motion_model(cfg, mc.map, feats, self.velocity @ self.last_T,
+                                        self.K, self.last_feats, self.last_lm,
+                                        T_last=self.last_T)
+            T, feat_lm = r1.T_cw, r1.feat_lm
+            if int(r1.n_inliers) < cfg.tracking.min_inliers_track:
+                T, feat_lm = self.last_T, torch.full_like(r1.feat_lm, -1)
+        with stage("track.local_map"):
+            r2, mc.map = trk.track_local_map(cfg, mc.map, feats, T, self.K, feat_lm)
+            n2, n_matches = (int(x) for x in torch.stack([r2.n_inliers, r2.n_matches]).tolist())
+        if (n2 < cfg.tracking.min_inliers_local_map
+                or n2 < cfg.tracking.min_track_inlier_ratio * n_matches
+                or n2 < 0.25 * self.prev_inliers):
+            return 0 if n2 >= cfg.tracking.min_inliers_local_map else n2
+        self.prev_inliers = n2
+        self.T_cw = r2.T_cw
+        self.velocity = self.T_cw @ geo.T_inv(self.last_T)
+        self.last_T = self.T_cw
+        self.last_feats = feats
+        self.last_lm = r2.feat_lm
+        self.frames_since_kf += 1
+        # NeedNewKeyFrame with the peak inlier count since the last
+        # keyframe as the tracked-reference baseline
+        self.peak_inliers_since_kf = max(self.peak_inliers_since_kf, n2)
+        need = self.frames_since_kf >= cfg.tracking.new_kf_max_frames or (
+            self.frames_since_kf >= 1 and n2 > 15
+            and n2 < cfg.tracking.new_kf_tracked_ratio * self.peak_inliers_since_kf)
+        if need and not self.localization_only and mc.n_kf < cfg.capacity.max_keyframes - 1:
+            slot = mc.insert_keyframe(self.T_cw, self.K, feats, r2.feat_lm, self.frame_id,
+                                      timestamp)
+            self._last_ref = (slot, np.eye(4))
+            self.last_kf_inliers = n2
+            self.peak_inliers_since_kf = n2
+            self.frames_since_kf = 0
+            mc.update_bow_row(slot)
+            if mc.try_close_loop(slot, self.generator):
+                self.T_cw = mc.map.kf_pose[slot]
+                self.last_T = self.T_cw
+                self.velocity = torch.eye(4, dtype=torch.float32, device=self.device)
+            if self.on_keyframe is not None:
+                self.on_keyframe(self, slot)
+        else:
+            ref = mc.n_kf - 1
+            self._last_ref = (ref, _np(self.T_cw @ geo.T_inv(mc.map.kf_pose[ref])))
+        return n2
+
     def _track_fused(self, img, timestamp: float) -> int:
         mc = self.mapctx
         if self._ts is None:
@@ -871,6 +974,66 @@ class RobotTracker:
         mc.gba_slice()
         return recs
 
+    # -- stereo / RGB-D (System::TrackStereo / TrackRGBD) --------------------
+    def process_frame_stereo(self, image_left, image_right, timestamp: float) -> FrameRecord:
+        imgL = torch.as_tensor(image_left, device=self.device)
+        imgR = torch.as_tensor(image_right, device=self.device)
+        with stage("orb.extract"):
+            featsR = self.extract(imgR)
+        return self._process_depth_frame(
+            imgL, timestamp,
+            lambda f: st.with_stereo(f, featsR, self.cfg.camera, self.cfg.orb.scale_factor,
+                                     img_left=imgL, img_right=imgR))
+
+    def process_frame_rgbd(self, image, depth_image, timestamp: float) -> FrameRecord:
+        depth = torch.as_tensor(depth_image, device=self.device)
+        return self._process_depth_frame(
+            torch.as_tensor(image, device=self.device), timestamp,
+            lambda f: st.with_depthmap(f, depth, self.cfg.camera))
+
+    def _process_depth_frame(self, img, timestamp: float, attach_depth) -> FrameRecord:
+        """The stereo/RGB-D state machine on the host tracking path."""
+        self.frame_id += 1
+        n_inl = 0
+
+        def features():
+            with stage("orb.extract"):
+                feats = self.extract(img)
+            return attach_depth(feats)
+
+        if self.state in (TrackingState.NO_IMAGES_YET, TrackingState.NOT_INITIALIZED):
+            feats = features()
+            self.state = TrackingState.NOT_INITIALIZED
+            if self.localization_only and self.mapctx.n_kf >= 1:
+                n_inl = self._try_relocalize(feats)
+            else:
+                self._try_initialize_depth(feats, timestamp)
+        elif self.state == TrackingState.OK:
+            n_inl = self._track(features(), timestamp)
+            if n_inl < self.cfg.tracking.min_inliers_local_map:
+                self.state = TrackingState.LOST
+                self._maybe_reset_young_map()
+        elif (not self.cfg.multi_mapping or self.localization_only
+              or self.on_keyframe is None or self.reloc_on_loss):
+            # LOST with no MultiMapper owning the loss: relocalize
+            n_inl = self._try_relocalize(features())
+        return self._record(timestamp, n_inl)
+
+    def _record(self, timestamp: float, n_inl: int) -> FrameRecord:
+        ok_now = self.state == TrackingState.OK
+        rec = FrameRecord(
+            frame_id=self.frame_id,
+            timestamp=timestamp,
+            T_cw=_np(self.T_cw),
+            state=self.state.name,
+            n_inliers=n_inl,
+            map_id=self.mapctx.map_id,
+            ref_slot=self._last_ref[0] if ok_now else -1,
+            T_rel=self._last_ref[1] if ok_now else None,
+        )
+        self.frames.append(rec)
+        return rec
+
     # -- public API --------------------------------------------------------
     def process_frame(self, image, timestamp: float) -> FrameRecord:
         self._vocabulary_gate()
@@ -900,19 +1063,7 @@ class RobotTracker:
             # with multi-mapping on starts a new map instead
             # (Tracking.cc:330-366)
             n_inl = self._try_relocalize(self.extract(img))
-        ok_now = self.state == TrackingState.OK
-        rec = FrameRecord(
-            frame_id=self.frame_id,
-            timestamp=timestamp,
-            T_cw=_np(self.T_cw),
-            state=self.state.name,
-            n_inliers=n_inl,
-            map_id=self.mapctx.map_id,
-            ref_slot=self._last_ref[0] if ok_now else -1,
-            T_rel=self._last_ref[1] if ok_now else None,
-        )
-        self.frames.append(rec)
-        return rec
+        return self._record(timestamp, n_inl)
 
 
 @dataclass
@@ -998,3 +1149,37 @@ class MonocularSession:
         s["state"] = self.tracker.state.name
         s["frames"] = len(self.frames)
         return s
+
+
+@dataclass
+class StereoSession(MonocularSession):
+    """Rectified-stereo facade (System::TrackStereo): metric scale from the
+    baseline, a one-keyframe bootstrap, close landmarks spawned from depth.
+    ``process_frame(image_left, image_right, timestamp)``."""
+
+    def __post_init__(self):
+        if self.cfg.camera.bf <= 0:
+            raise ValueError("StereoSession needs camera.bf > 0")
+        self.cfg = self.cfg.replace(sensor="stereo")
+        super().__post_init__()
+
+    def process_frame(self, image_left, image_right, timestamp):
+        return self.tracker.process_frame_stereo(image_left, image_right, timestamp)
+
+
+@dataclass
+class RGBDSession(MonocularSession):
+    """RGB-D facade (System::TrackRGBD): a depth image registered to the
+    image, the virtual right coordinate u - bf/d
+    (Frame::ComputeStereoFromRGBD). ``process_frame(image, depth_image,
+    timestamp)``, the depth in raw units (``camera.depth_map_factor`` per
+    metre)."""
+
+    def __post_init__(self):
+        if self.cfg.camera.bf <= 0:
+            raise ValueError("RGBDSession needs camera.bf > 0")
+        self.cfg = self.cfg.replace(sensor="rgbd")
+        super().__post_init__()
+
+    def process_frame(self, image, depth_image, timestamp):
+        return self.tracker.process_frame_rgbd(image, depth_image, timestamp)

@@ -4,7 +4,8 @@ Pure functions over (MapState, Features, poses), as in the JAX package:
 motion-model tracking projects the last frame's landmarks at the predicted
 pose and matches them in windows; local-map tracking projects the whole
 landmark pool, keeps the frustum-visible candidates and matches the
-unassociated features against them; both finish with motion-only BA.
+unassociated features against them; both finish with motion-only BA,
+with the stereo row where the frame carries right-x measurements.
 """
 
 from __future__ import annotations
@@ -66,7 +67,7 @@ def track_motion_model(cfg: SlamConfig, m: MapState, feats: Features, T_pred, K,
     pos_f = m.lm_pos[torch.where(use, feat_lm, torch.zeros_like(feat_lm))]
     s2 = _sigma2(feats.level, cfg.orb.scale_factor, cfg.tracking.pixel_noise)
     both = ba.pose_optimize(torch.stack([T_pred, T_last]), K, pos_f, feats.xy, use,
-                            sigma2=s2)
+                            sigma2=s2, ur_obs=feats.u_right, bf=cfg.camera.bf)
     sel = torch.where(both.n_inliers[0] >= both.n_inliers[1], 0, 1)
     opt_inliers = both.inliers[sel]
     feat_lm = torch.where(opt_inliers, feat_lm, _neg1(feat_lm))
@@ -138,6 +139,7 @@ def track_local_map(cfg: SlamConfig, m: MapState, feats: Features, T_cw, K, feat
     opt = ba.pose_optimize(
         T_cw, K, pos_f, feats.xy, use,
         sigma2=_sigma2(feats.level, cfg.orb.scale_factor, cfg.tracking.pixel_noise),
+        ur_obs=feats.u_right, bf=cfg.camera.bf,
     )
     feat_lm = torch.where(opt.inliers, feat_lm, _neg1(feat_lm))
 

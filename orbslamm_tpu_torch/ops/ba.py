@@ -8,8 +8,10 @@ converged carry is frozen with ``torch.where`` here, so no decision ever
 leaves the device; where it runs every iteration (pose graph, Sim3
 refinement, global BA) so does the port. Linear solves use ``solve_ex`` /
 ``inv_ex`` (no error check, hence no host sync). Segment sums are
-``index_add_`` (on CUDA their float order varies from run to run). The
-stereo ``u_r`` residual comes with the stereo port.
+``index_add_`` (on CUDA their float order varies from run to run). Stereo
+and RGB-D observations add the reference's third residual row
+``u - bf/z - u_r`` (EdgeStereoSE3Project*) with the 3-DoF chi2 gate; a
+monocular problem (``ur_obs``/``obs_ur`` None) runs the 2-row code alone.
 """
 
 from __future__ import annotations
@@ -31,8 +33,9 @@ def _project_and_residual(T_cw, K, pts_w, uv_obs):
     return uv - uv_obs, pc
 
 
-def _pose_jacobian(K, pc):
-    """d(residual)/d(se3 left-perturbation of T_cw): [..., N, 2, 6]."""
+def _pose_jacobian(K, pc, bf=0.0, has_ur=None):
+    """d(residual)/d(se3 left-perturbation of T_cw): [..., N, D, 6], D = 2,
+    or 3 with the stereo row d(u - bf/z) (zero where ``has_ur`` is False)."""
     fx, fy = K[0, 0], K[1, 1]
     x, y, z = pc[..., 0], pc[..., 1], pc[..., 2]
     zi = 1.0 / torch.clamp_min(z, 1e-6)
@@ -40,7 +43,12 @@ def _pose_jacobian(K, pc):
     zero = torch.zeros_like(x)
     du = torch.stack([fx * zi, zero, -fx * x * zi2], dim=-1)
     dv = torch.stack([zero, fy * zi, -fy * y * zi2], dim=-1)
-    dpd = torch.stack([du, dv], dim=-2)  # [..., N, 2, 3]
+    rows = [du, dv]
+    if has_ur is not None:
+        # d(u - bf/z)/dpc = du/dpc + [0, 0, bf/z^2]
+        rows.append(torch.stack([fx * zi, zero, -fx * x * zi2 + bf * zi2], dim=-1)
+                    * has_ur[..., None])
+    dpd = torch.stack(rows, dim=-2)  # [..., N, D, 3]
     px = geo.skew(pc)
     eye = torch.eye(3, dtype=pc.dtype, device=pc.device).expand_as(px)
     dpc = torch.cat([eye, -px], dim=-1)  # [..., N, 3, 6]
@@ -60,7 +68,8 @@ def _freeze(done, old, new):
 
 
 def pose_optimize(T_init, K, pts_w, uv_obs, valid, sigma2=1.0, rounds: int = 4,
-                  iters: int = 10, chi2_th: float = CHI2_MONO) -> PoseOptResult:
+                  iters: int = 10, chi2_th: float = CHI2_MONO, ur_obs=None,
+                  bf: float = 0.0) -> PoseOptResult:
     """Motion-only bundle adjustment (reference Optimizer::PoseOptimization:
     4 rounds x 10 LM iterations, Huber, chi2 re-classification between
     rounds).
@@ -68,24 +77,40 @@ def pose_optimize(T_init, K, pts_w, uv_obs, valid, sigma2=1.0, rounds: int = 4,
     ``T_init`` is [4,4] or a batch [B,4,4] of starting poses optimized
     independently against the same observations (the motion model's two
     basins). pts_w [N,3], uv_obs [N,2], valid [N], sigma2 scalar or [N].
+    ``ur_obs`` [N]: stereo right-x measurements (-1 = a monocular
+    observation) add the row ``u - bf/z - u_r``
+    (EdgeStereoSE3ProjectXYZOnlyPose), which pins metric scale every frame;
+    stereo rows are gated by the 3-DoF threshold.
     """
     with stage("ba.pose_optimize"):
         return _pose_optimize(T_init, K, pts_w, uv_obs, valid, sigma2, rounds, iters,
-                              chi2_th)
+                              chi2_th, ur_obs, bf)
 
 
-def _pose_optimize(T_init, K, pts_w, uv_obs, valid, sigma2, rounds, iters, chi2_th):
+def _pose_optimize(T_init, K, pts_w, uv_obs, valid, sigma2, rounds, iters, chi2_th,
+                   ur_obs=None, bf=0.0):
     batched = T_init.ndim == 3
     T = T_init if batched else T_init[None]
     B = T.shape[0]
     dev = T.device
     sigma2 = torch.as_tensor(sigma2, dtype=torch.float32, device=dev).expand(valid.shape)
     inv_s2 = 1.0 / sigma2
+    has_ur = None if ur_obs is None else ur_obs >= 0.0
+    if ur_obs is not None:
+        chi2_th = torch.where(has_ur, torch.as_tensor(CHI2_STEREO, device=dev),
+                              torch.as_tensor(chi2_th, dtype=torch.float32, device=dev))
     delta_h = torch.sqrt(chi2_th * sigma2)
     eye6 = torch.eye(6, dtype=torch.float32, device=dev)
 
     def residual(T):
-        return _project_and_residual(T, K, pts_w, uv_obs)  # [B,N,2], [B,N,3]
+        r, pc = _project_and_residual(T, K, pts_w, uv_obs)  # [B,N,2], [B,N,3]
+        if ur_obs is None:
+            return r, pc
+        z = torch.clamp_min(pc[..., 2], 1e-6)
+        u = r[..., 0] + uv_obs[:, 0]  # the projected u
+        r3 = (u - bf / z - ur_obs) * has_ur
+        return torch.cat([r, r3[..., None]], dim=-1), pc
+
 
     def cost_of(r, pc, mask):
         rrn2 = (r * r).sum(-1) * inv_s2
@@ -96,7 +121,7 @@ def _pose_optimize(T_init, K, pts_w, uv_obs, valid, sigma2, rounds, iters, chi2_
     def lm_body(T, lam, mask):
         r, pc = residual(T)
         use = mask & ~(pc[..., 2] < 1e-3)
-        J = _pose_jacobian(K, pc)  # [B,N,2,6]
+        J = _pose_jacobian(K, pc, bf, has_ur)  # [B,N,D,6]
         rn = torch.linalg.norm(r, dim=-1)
         w = torch.where(rn > delta_h, delta_h / torch.clamp_min(rn, 1e-9),
                         torch.ones_like(rn)) * inv_s2
@@ -197,7 +222,8 @@ def _window_incidence(obs_point, obs_valid, P: int):
 
 def bundle_adjust_window(T_cw, K, cam_valid, cam_fixed, points, point_valid,
                          obs_point, obs_uv, obs_sigma2, obs_valid, iters: int = 8,
-                         chi2_th: float = CHI2_MONO, lam0: float = 1e-4) -> WindowBAResult:
+                         chi2_th: float = CHI2_MONO, lam0: float = 1e-4, obs_ur=None,
+                         bf=None) -> WindowBAResult:
     """Schur-complement LM for a covisibility window (reference
     LocalBundleAdjustment, Optimizer.cc:475), in the window's [W,M]
     observation layout: camera blocks reduce over each camera's own
@@ -205,11 +231,15 @@ def bundle_adjust_window(T_cw, K, cam_valid, cam_fixed, points, point_valid,
 
     T_cw [W,4,4], K [W,3,3], cam_valid/cam_fixed [W], points [P,3],
     point_valid [P], obs_point [W,M] int, obs_uv [W,M,2], obs_sigma2 [W,M],
-    obs_valid [W,M].
+    obs_valid [W,M]; stereo edges (EdgeStereoSE3ProjectXYZ): obs_ur [W,M]
+    right-x (-1 = monocular) and bf [W].
     """
     W, M = obs_point.shape
     P = points.shape[0]
     dev = points.device
+    chi2_e = chi2_th if obs_ur is None else torch.where(
+        obs_ur >= 0.0, torch.as_tensor(CHI2_STEREO, device=dev),
+        torch.as_tensor(chi2_th, dtype=torch.float32, device=dev))
     idx_wp, _ = _window_incidence(obs_point, obs_valid, P)
 
     def gather_wp(X):
@@ -238,7 +268,11 @@ def bundle_adjust_window(T_cw, K, cam_valid, cam_fixed, points, point_valid,
         z = torch.clamp_min(pc[..., 2], 1e-6)
         u = fx * pc[..., 0] / z + cx
         v = fy * pc[..., 1] / z + cy
-        return torch.stack([u, v], -1) - obs_uv, pc
+        r = torch.stack([u, v], -1) - obs_uv
+        if obs_ur is not None:
+            r3 = (u - bf[:, None] / z - obs_ur) * (obs_ur >= 0.0)
+            r = torch.cat([r, r3[..., None]], -1)
+        return r, pc
 
     def jacobians(pc, T_all):
         x, y, z = pc[..., 0], pc[..., 1], pc[..., 2]
@@ -247,15 +281,19 @@ def bundle_adjust_window(T_cw, K, cam_valid, cam_fixed, points, point_valid,
         zero = torch.zeros_like(x)
         du = torch.stack([fx * zi, zero, -fx * x * zi2], -1)
         dv = torch.stack([zero, fy * zi, -fy * y * zi2], -1)
-        dpd = torch.stack([du, dv], -2)  # [W,M,2,3]
+        rows = [du, dv]
+        if obs_ur is not None:
+            dur = torch.stack([fx * zi, zero, -fx * x * zi2 + bf[:, None] * zi2], -1)
+            rows.append(dur * (obs_ur >= 0.0).to(pc.dtype)[..., None])
+        dpd = torch.stack(rows, -2)  # [W,M,D,3]
         px = geo.skew(pc)
-        Jc = dpd @ torch.cat([eye3.expand_as(px), -px], -1)  # [W,M,2,6]
-        Jp = dpd @ T_all[:, None, :3, :3]  # [W,M,2,3]
+        Jc = dpd @ torch.cat([eye3.expand_as(px), -px], -1)  # [W,M,D,6]
+        Jp = dpd @ T_all[:, None, :3, :3]  # [W,M,D,3]
         return Jc, Jp
 
     def cost_of(r, pc, use):
         chi2 = (r * r).sum(-1) / obs_sigma2
-        hub = torch.where(chi2 <= chi2_th, chi2, 2.0 * torch.sqrt(chi2_th * chi2) - chi2_th)
+        hub = torch.where(chi2 <= chi2_e, chi2, 2.0 * torch.sqrt(chi2_e * chi2) - chi2_e)
         return torch.where(use & (pc[..., 2] > 1e-3), hub, torch.zeros_like(hub)).sum()
 
     base_use = obs_valid & cam_valid[:, None] & point_valid[pt_of]
@@ -264,7 +302,7 @@ def bundle_adjust_window(T_cw, K, cam_valid, cam_fixed, points, point_valid,
         r, pc = residual(T_all, pts)
         use = base_use & (pc[..., 2] > 1e-3)
         rn = torch.linalg.norm(r, dim=-1)
-        delta = torch.sqrt(chi2_th * obs_sigma2)
+        delta = torch.sqrt(chi2_e * obs_sigma2)
         w = torch.where(rn > delta, delta / torch.clamp_min(rn, 1e-9),
                         torch.ones_like(rn)) / obs_sigma2
         w = torch.where(use, w, torch.zeros_like(w))
@@ -333,7 +371,7 @@ def bundle_adjust_window(T_cw, K, cam_valid, cam_fixed, points, point_valid,
         done = done | done_n
     r, pc = residual(T_all, pts)
     chi2 = (r * r).sum(-1) / obs_sigma2
-    inlier = obs_valid & (chi2 <= chi2_th) & (pc[..., 2] > 1e-3)
+    inlier = obs_valid & (chi2 <= chi2_e) & (pc[..., 2] > 1e-3)
     return WindowBAResult(T_cw=T_all, points=pts, obs_inlier=inlier,
                           cost=cost_of(r, pc, base_use))
 
@@ -561,8 +599,10 @@ def sim3_refine(S21, pts1, pts2, valid, K1, K2, sigma2=1.0, iters: int = 8,
 # ---------------------------------------------------------------------------
 
 class BAProblem(NamedTuple):
-    """Fixed-capacity bundle-adjustment problem in edge-list form. Monocular
-    edges only here: ``obs_ur``/``bf`` stay None until the stereo port."""
+    """Fixed-capacity bundle-adjustment problem in edge-list form. Stereo
+    edges (EdgeStereoSE3ProjectXYZ) carry a right-x measurement in
+    ``obs_ur`` (-1 = a monocular edge) and their camera's ``bf``; both None
+    make a monocular problem."""
 
     T_cw: torch.Tensor  # [C,4,4] camera poses
     K: torch.Tensor  # [C,3,3] per-camera intrinsics
@@ -575,8 +615,8 @@ class BAProblem(NamedTuple):
     obs_uv: torch.Tensor  # [E,2]
     obs_sigma2: torch.Tensor  # [E]
     obs_valid: torch.Tensor  # [E] bool
-    obs_ur: torch.Tensor | None = None  # [E] (stereo port)
-    bf: torch.Tensor | None = None  # [C] (stereo port)
+    obs_ur: torch.Tensor | None = None  # [E]
+    bf: torch.Tensor | None = None  # [C]
 
 
 class BAResult(NamedTuple):
@@ -586,22 +626,24 @@ class BAResult(NamedTuple):
     cost: torch.Tensor
 
 
-def _check_mono(p: BAProblem):
-    if p.obs_ur is not None or p.bf is not None:
-        raise NotImplementedError(
-            "stereo BA rows (ROADMAP queue 1, step 13) are not ported to orbslamm_tpu_torch yet")
-
-
 def _ba_residuals(T_cw, K, points, p: BAProblem):
     oc, op = p.obs_cam.long(), p.obs_point.long()
     Tc = T_cw[oc]  # [E,4,4]
     Kc = K[oc]
     pc = torch.einsum("eij,ej->ei", Tc[:, :3, :3], points[op]) + Tc[:, :3, 3]
-    return geo.project(Kc, pc) - p.obs_uv, pc, Tc, Kc
+    uv = geo.project(Kc, pc)
+    r = uv - p.obs_uv
+    if p.obs_ur is not None:
+        # stereo third row (u - bf/z) - u_r, zero on monocular edges
+        z = torch.clamp_min(pc[:, 2], 1e-6)
+        r3 = (uv[:, 0] - p.bf[oc] / z - p.obs_ur) * (p.obs_ur >= 0.0)
+        r = torch.cat([r, r3[:, None]], -1)  # [E,3]
+    return r, pc, Tc, Kc
 
 
 def _ba_jacobians(Kc, Tc, pc, p: BAProblem):
-    """Per-edge J wrt camera twist [E,2,6] and wrt point [E,2,3]."""
+    """Per-edge J wrt camera twist [E,D,6] and wrt point [E,D,3] (D = 2
+    monocular, 3 with the stereo row)."""
     fx, fy = Kc[:, 0, 0], Kc[:, 1, 1]
     x, y, z = pc[:, 0], pc[:, 1], pc[:, 2]
     zi = 1.0 / torch.clamp_min(z, 1e-6)
@@ -609,7 +651,13 @@ def _ba_jacobians(Kc, Tc, pc, p: BAProblem):
     zero = torch.zeros_like(x)
     du = torch.stack([fx * zi, zero, -fx * x * zi2], -1)
     dv = torch.stack([zero, fy * zi, -fy * y * zi2], -1)
-    dpd = torch.stack([du, dv], -2)  # [E,2,3]
+    rows = [du, dv]
+    if p.obs_ur is not None:
+        bf_e = p.bf[p.obs_cam.long()]
+        # d(u - bf/z)/dpc = du/dpc + [0, 0, bf/z^2]
+        dur = torch.stack([fx * zi, zero, -fx * x * zi2 + bf_e * zi2], -1)
+        rows.append(dur * (p.obs_ur >= 0.0).to(pc.dtype)[:, None])
+    dpd = torch.stack(rows, -2)  # [E,D,3]
     px = geo.skew(pc)
     eye = torch.eye(3, dtype=pc.dtype, device=pc.device).expand_as(px)
     Jc = dpd @ torch.cat([eye, -px], -1)
@@ -618,8 +666,11 @@ def _ba_jacobians(Kc, Tc, pc, p: BAProblem):
 
 
 def _chi2_per_edge(p: BAProblem, chi2_th):
-    """Per-edge chi2 gate (the stereo 3-DoF threshold comes with step 13)."""
-    return chi2_th
+    """Per-edge chi2 gate: the 3-DoF threshold on stereo edges."""
+    if p.obs_ur is None:
+        return chi2_th
+    return torch.where(p.obs_ur >= 0.0, torch.as_tensor(CHI2_STEREO, device=p.obs_ur.device),
+                       torch.as_tensor(chi2_th, dtype=torch.float32, device=p.obs_ur.device))
 
 
 def _robust_weights(r, sigma2, use, chi2_th):
@@ -648,7 +699,6 @@ def bundle_adjust_cg(p: BAProblem, iters: int = 10, cg_iters: int = 30,
     fixed count of block-Jacobi preconditioned CG iterations whose
     matrix-vector product is three edge-wise segment sums (``index_add_``).
     ``cost`` is the last iteration's trial cost, as in the JAX package."""
-    _check_mono(p)
     with stage("ba.global_cg"):
         return _bundle_adjust_cg(p, iters, cg_iters, chi2_th, lam0)
 

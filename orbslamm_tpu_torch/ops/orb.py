@@ -55,10 +55,10 @@ class Features(NamedTuple):
     level: torch.Tensor  # [M] int32 pyramid octave
     desc: torch.Tensor  # [M, 32] uint8 — 256-bit descriptor
     valid: torch.Tensor  # [M] bool
-    # stereo / RGB-D fields of the JAX Features; always None in this port
-    # until stereo/RGB-D is ported
-    u_right: torch.Tensor | None = None
-    depth: torch.Tensor | None = None
+    # stereo / RGB-D (ops/stereo.py): right-image x and metric depth per
+    # feature, -1 where there is none; None for a monocular frame
+    u_right: torch.Tensor | None = None  # [M] float32
+    depth: torch.Tensor | None = None  # [M] float32
 
     @property
     def capacity(self) -> int:

@@ -156,7 +156,7 @@ def _replay_kfs_device(cfg: SlamConfig, mA: ms.MapState, bowA, voc, mB: ms.MapSt
         feats = Features(
             xy=mB.kf_xy[src], xy_raw=mB.kf_xy[src], angle=mB.kf_angle[src],
             response=torch.where(valid, 50.0, 0.0), level=mB.kf_level[src],
-            desc=mB.kf_desc[src], valid=valid)
+            desc=mB.kf_desc[src], valid=valid, u_right=mB.kf_ur[src])
         obs = mB.kf_obs_lm[src]
         safe = torch.clamp_min(obs, 0)
         keep = (obs >= 0) & mA.lm_valid[safe] & base_valid[safe]

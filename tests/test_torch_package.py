@@ -2,9 +2,9 @@
 JAX package, its copies of the JAX package's numpy-only modules (config,
 synthetic sequences, ATE) and generators are exact, its converters carry a
 map across both ways, the CPU matcher never launches the CUDA kernel, the
-paths of earlier steps that once were refused now run, and the paths the
-port does not have yet (stereo and RGB-D, the bank's device mesh) are
-refused rather than skipped."""
+paths of earlier steps that once were refused now run, and the path the
+port does not have yet (the bank's device mesh) is refused rather than
+skipped."""
 
 import ast
 import dataclasses
@@ -385,9 +385,14 @@ def test_paths_the_slice_lacks_are_refused():
     assert torch.allclose(mc.kf_bow[:4].sum(-1), torch.ones(4))  # every keyframe's row
     sess.activate_localization_mode()
     assert sess.tracker.localization_only
-    # stereo and RGB-D
-    with pytest.raises(NotImplementedError, match="step 13"):
-        MonocularSession(dataclasses.replace(CFG, sensor="stereo"), device="cpu")
+    # stereo and RGB-D (step 13) are ported: their sessions refuse a
+    # camera without a baseline and take one with a rig
+    from orbslamm_tpu_torch.models.system import RGBDSession, StereoSession
+    for kind, sensor in ((StereoSession, "stereo"), (RGBDSession, "rgbd")):
+        with pytest.raises(ValueError, match="bf > 0"):
+            kind(CFG, device="cpu")
+        rig = dataclasses.replace(CFG, camera=dataclasses.replace(CAM, bf=40.0))
+        assert kind(rig, device="cpu").tracker.cfg.sensor == sensor
     # the robot-parallel bank runs on one device; sharding its robot axis
     # over a device mesh is step 14b
     from orbslamm_tpu_torch.parallel.streams import StreamBank

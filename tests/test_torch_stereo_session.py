@@ -1,0 +1,184 @@
+"""Stereo and RGB-D sessions of orbslamm_tpu_torch against the JAX package,
+and the port's sessions alone on tests/test_stereo_rgbd.py's sequences.
+
+Tolerances:
+  * host tracking step (``RobotTracker._track``): a JAX session bootstraps
+    on its first frame and tracks two more; from its map and tracking
+    state, converted, the port's ``_track`` and the JAX one then step the
+    next 8 frames on the JAX package's features (extraction and depth
+    association injected, so both track the same frames), and after that
+    every frame to the end of the sequence with the port's tracker reset
+    to the JAX map and state before each step. Per frame the inlier count,
+    the landmark association of every feature and the keyframe decision
+    are equal, and the pose agrees within 1e-3 (float32 solves that sum in
+    another order; a motion-model prediction carries a frame's difference
+    into the next, which is why the free window is 8 frames: the sessions
+    amplify such differences, so a free run of the whole sequence would
+    end at another trajectory in either package);
+  * the port's own sessions: tests/test_stereo_rgbd.py's bars (stereo: at
+    most 4 frames lost, SE3-aligned ATE below 0.2 m; RGB-D: at most 5
+    lost, travelled distance within 15 % of ground truth, SE3 ATE below
+    0.25 m).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from orbslamm_tpu.io.synthetic import make_sequence
+from orbslamm_tpu.models.system import RGBDSession as JaxRGBD
+from orbslamm_tpu.models.system import StereoSession as JaxStereo
+from orbslamm_tpu.ops import stereo as jst
+from orbslamm_tpu.utils.config import (
+    CameraConfig, CapacityConfig, OrbConfig, SlamConfig, TrackingConfig,
+)
+from orbslamm_tpu_torch import convert
+from orbslamm_tpu_torch.eval.ate import ate_from_poses
+from orbslamm_tpu_torch.models.system import RGBDSession, StereoSession, TrackingState
+
+torch.set_num_threads(2)
+
+# tests/test_stereo_rgbd.py's camera and configuration
+CAM = CameraConfig(width=320, height=240, fx=260, fy=260, cx=160, cy=120, fps=30,
+                   bf=130.0, th_depth=60.0, depth_map_factor=1.0)
+CFG = SlamConfig(
+    camera=CAM,
+    orb=OrbConfig(n_features=400, max_keypoints=1024, n_levels=4),
+    capacity=CapacityConfig(max_keyframes=64, max_landmarks=4096),
+    tracking=TrackingConfig(pixel_noise=1.2, min_matches_init=60, init_min_triangulated=30,
+                            init_min_parallax_deg=0.4),
+)
+BOOT, STEPS = 3, 8
+
+
+def _np(tree):
+    return jax.tree.map(np.array, tree)
+
+
+def _sequence(sensor, seed=None):
+    """tests/test_stereo_rgbd.py's sequences (stereo: strafe, seed 11, 24
+    frames; RGB-D: forward, seed 7, 30 frames), or another seed of them."""
+    if sensor == "stereo":
+        return make_sequence(n_frames=24, n_points=900, cam=CAM, seed=seed or 11,
+                             motion="strafe", stereo=True)
+    return make_sequence(n_frames=30, n_points=900, cam=CAM, seed=seed or 7, motion="forward",
+                         with_depth=True)
+
+
+@pytest.mark.parametrize("sensor", ["stereo", "rgbd"])
+def test_track_step_matches_jax(sensor):
+    seq = _sequence(sensor)
+    if sensor == "stereo":
+        js = JaxStereo(CFG)
+        frames = [(seq.images[i], seq.images_right[i]) for i in range(len(seq.images))]
+
+        def jax_feats(tr, i):
+            imgL, imgR = (jnp.asarray(a) for a in frames[i])
+            return jst.with_stereo(tr.extract(imgL), tr.extract(imgR), CAM, CFG.orb.scale_factor,
+                                   img_left=imgL, img_right=imgR)
+        port = StereoSession(CFG, device="cpu")
+    else:
+        js = JaxRGBD(CFG)
+        frames = [(seq.images[i], seq.depths[i]) for i in range(len(seq.images))]
+
+        def jax_feats(tr, i):
+            return jst.with_depthmap(tr.extract(jnp.asarray(frames[i][0])),
+                                     jnp.asarray(frames[i][1]), CAM)
+        port = RGBDSession(CFG, device="cpu")
+    for i in range(BOOT):
+        js.process_frame(*frames[i], float(seq.timestamps[i]))
+    jt, tt = js.tracker, port.tracker
+    assert js.frames[0].state == "OK" and jt.state.name == "OK"  # one-frame bootstrap
+
+    def take_over():
+        """The port's tracker takes over the JAX map and tracking state."""
+        tt.mapctx.map = convert.map_state_from_numpy(_np(jt.mapctx.map)._asdict(), device="cpu")
+        tt.mapctx.n_kf = jt.mapctx.n_kf
+        tt.T_cw, tt.velocity, tt.last_T = (torch.as_tensor(np.array(a))
+                                           for a in (jt.T_cw, jt.velocity, jt.last_T))
+        tt.last_feats = convert.features_from_numpy(_np(jt.last_feats)._asdict(), device="cpu")
+        tt.last_lm = torch.as_tensor(np.array(jt.last_lm))
+        for name in ("frame_id", "frames_since_kf", "peak_inliers_since_kf", "prev_inliers",
+                     "last_kf_inliers"):
+            setattr(tt, name, getattr(jt, name))
+        tt.state = TrackingState.OK
+
+    take_over()
+    new_kfs = 0
+    for i in range(BOOT, len(frames)):
+        if i >= BOOT + STEPS:
+            take_over()
+        fj = jax_feats(jt, i)
+        ft = convert.features_from_numpy(_np(fj)._asdict(), device="cpu")
+        jt.frame_id += 1
+        tt.frame_id += 1
+        kf_j, kf_t = jt.mapctx.n_kf, tt.mapctx.n_kf
+        n_j = jt._track(fj, float(seq.timestamps[i]))
+        n_t = tt._track(ft, float(seq.timestamps[i]))
+        assert n_t == n_j > 0, i
+        assert tt.mapctx.n_kf - kf_t == jt.mapctx.n_kf - kf_j, i  # the keyframe decision
+        new_kfs += jt.mapctx.n_kf - kf_j
+        assert np.array_equal(tt.last_lm.numpy(), np.asarray(jt.last_lm)), i
+        np.testing.assert_allclose(tt.T_cw.numpy(), np.asarray(jt.T_cw), rtol=0, atol=1e-3)
+        assert tt._last_ref[0] == jt._last_ref[0], i
+        for name in ("frames_since_kf", "peak_inliers_since_kf", "prev_inliers",
+                     "last_kf_inliers"):
+            assert getattr(tt, name) == getattr(jt, name), (i, name)
+    assert new_kfs >= 4  # the steps run the keyframe pipeline
+    m_j = _np(jt.mapctx.map)
+    assert np.array_equal(tt.mapctx.map.kf_valid.numpy(), m_j.kf_valid)
+    assert np.array_equal(tt.mapctx.map.kf_ur.numpy() >= 0, m_j.kf_ur >= 0)
+
+
+def _center(T):
+    return -(T[:3, :3].T @ T[:3, 3])
+
+
+def _gt(seq, ts):
+    return seq.poses_cw[[int(round(t * CAM.fps)) for t in ts]]
+
+
+def test_stereo_session_tracks_with_metric_scale():
+    seq = _sequence("stereo")
+    sess = StereoSession(CFG, device="cpu")
+    assert sess.cfg.sensor == "stereo"
+    recs = [sess.process_frame(seq.images[i], seq.images_right[i], float(seq.timestamps[i]))
+            for i in range(len(seq.images))]
+    assert recs[0].state == "OK"  # one stereo frame initializes
+    assert sum(r.state == "LOST" for r in recs) <= 4
+    assert sess.n_kf >= 1
+    ts, est = sess.frame_trajectory()
+    assert len(est) > 15
+    ate_se3 = ate_from_poses(est, _gt(seq, ts), align="se3")
+    assert ate_se3 < 0.2, f"SE3 (metric) ATE {ate_se3:.3f}"
+    assert (sess.map.kf_ur.numpy()[sess.map.kf_valid.numpy()] >= 0).any()
+
+
+def test_rgbd_session_metric_scale():
+    seq = _sequence("rgbd")
+    sess = RGBDSession(CFG, device="cpu")
+    assert sess.cfg.sensor == "rgbd"
+    recs = [sess.process_frame(seq.images[i], seq.depths[i], float(seq.timestamps[i]))
+            for i in range(len(seq.images))]
+    assert sum(r.state == "LOST" for r in recs) <= 5
+    assert sess.n_kf >= 2
+    ts, est = sess.frame_trajectory()
+    assert len(est) > 20
+    gt = _gt(seq, ts)
+    travel_est = np.linalg.norm(_center(est[-1]) - _center(est[0]))
+    travel_gt = np.linalg.norm(_center(gt[-1]) - _center(gt[0]))
+    scale_err = abs(travel_est / travel_gt - 1.0)
+    assert scale_err < 0.15, f"metric scale off by {scale_err:.1%}"
+    ate_se3 = ate_from_poses(est, gt, align="se3")
+    assert ate_se3 < 0.25, f"SE3 (metric) ATE {ate_se3:.3f}"
+
+
+def test_sessions_need_a_baseline():
+    import dataclasses
+
+    mono_cam = dataclasses.replace(CAM, bf=0.0)
+    for kind in (StereoSession, RGBDSession):
+        with pytest.raises(ValueError, match="bf > 0"):
+            kind(dataclasses.replace(CFG, camera=mono_cam), device="cpu")

@@ -263,6 +263,36 @@ def test_replay_follower_keyframes_matches_jax(n0, n, src, n_allowed):
     assert bool((bow_t[n_kf:] == 0).all())
 
 
+def test_replay_carries_stereo_right_x():
+    """A follower keyframe with stereo right-x measurements (the copy's
+    ``kf_ur``, -1 on monocular features) keeps them in the owner's map after
+    the replay, as in the JAX package."""
+    n0, n, src = 6, 9, [6, 7, 8]
+    maps, base_valid = _replay_maps(n0, n)
+    rng = np.random.default_rng(8)
+    mB = _np(maps["B_j"])
+    ur = np.where(mB.kf_feat_valid & (rng.random(mB.kf_ur.shape) > 0.3),
+                  mB.kf_xy[..., 0] - rng.uniform(5.0, 40.0, mB.kf_ur.shape), -1.0)
+    ur = ur.astype(np.float32)
+    mB = mB._replace(kf_ur=ur)
+    mB_j = jms.MapState(**{k: jnp.asarray(v) for k, v in mB._asdict().items()})
+    mB_t = convert.map_state_from_numpy(mB, device="cpu")
+    voc_j = jbow.load_vocabulary_npz(VOCAB)
+    bow0 = np.zeros((CFG.capacity.max_keyframes, voc_j.n_words), np.float32)
+    padded = (src + [-1] * 16)[:16]
+    mA_j, _ = jstreams._replay_kfs_device(
+        CFG, maps["A_j"], jnp.asarray(bow0), voc_j, mB_j, jnp.asarray(padded, jnp.int32),
+        jnp.asarray(base_valid), jnp.int32(n0), jnp.int32(len(src)), False)
+    mA_t, _ = tstreams._replay_kfs_device(
+        CFG, maps["A_t"], torch.as_tensor(bow0), None, mB_t, padded,
+        torch.as_tensor(base_valid), n0, len(src), False)
+    assert int(mA_t.n_kf) == int(mA_j.n_kf) == n
+    got = mA_t.kf_ur.numpy()
+    assert np.array_equal(got, np.asarray(mA_j.kf_ur))
+    assert np.array_equal(got[n0:n], ur[src])  # the replayed keyframes' right-x
+    assert (got[n0:n] >= 0).sum() > 100 and (got[:n0] == -1).all()
+
+
 def test_follower_copy_shares_no_storage_with_the_owner(boot):
     """After a shared refresh, one chunk in the follower's copy leaves every
     tensor of the owner's map (its slice and the shared context's map)
