@@ -57,7 +57,9 @@ non-zero and no phase failure is caught:
    kernel launches per tracked frame, and times the merge events.
 
 9. the bank path: the same scenario as bench.py runs it, through the
-   robot-parallel ``StreamBank``: after each robot's init, one bank
+   robot-parallel ``StreamBank`` with its robot axis over
+   ``multihost.stream_mesh()`` (the local cards; on one card both robots'
+   slots are on it): after each robot's init, one bank
    advances both robots a chunk per call (each robot's deferred-mapping
    chunk in turn: tracking of a 4-frame segment, then its queued keyframes
    mapped), with the MultiMapper's loss handling and merge pump wired in;
@@ -103,6 +105,27 @@ non-zero and no phase failure is caught:
     15% on 5 of 8 seeds in the JAX package and 4 of 8 in the port: within
     0.2 of each other seed by seed on seeds 1-6, while 7 and 8 split in
     opposite directions.
+12. the distributed parts on one card (``parallel/dist_ba.py``), each over
+    a mesh of DIST_SLOTS ``cuda:0`` slots and over one slot: the stream
+    extractor on 4 of the main path's frames (exact against the per-frame
+    extractor), the edge-sharded dense BA on the main path's newest
+    keyframe's local-BA window (free poses moved 1 cm) against the
+    unsharded ``ops/ba.bundle_adjust``, and the keyframe-block-sharded
+    global BA on the multi-map path's merged map (128 keyframe, 8192
+    landmark slots) against ``loop_closing.global_bundle_adjust`` with
+    every observation; gated by ``ba_agrees`` / ``gba_agrees`` (the bounds
+    tests/test_torch_dist_ba.py states); prints ms per call for 1 and for
+    DIST_SLOTS slots (on one card, the partitioning overhead);
+13. the multihost path: two worker processes on the card
+    (``--multihost-worker``), joined over gloo by the port's
+    ``multihost.initialize``, each starting from one robot's map of the
+    multi-map path as it stood when that path merged, with the vocabulary
+    broadcast from process 0; ``HostMapperBridge.pump()`` in lockstep until
+    a process merges (at most MH_ROUNDS rounds); asserts both exit 0 after
+    as many exchanges, a map imported and merged, and a merged keyframe ATE
+    below 0.6 m; prints the bytes shipped, ms per exchange and the merge
+    beside the in-process one. The chip host has one card: no multi-card
+    or NCCL path is exercised (none exists; processes talk over gloo).
 
 Each phase prints its wall time. The last line is the JSON contract line;
 the line before it holds the kernels' record. Needs the port package beside
@@ -114,10 +137,12 @@ data; it imports nothing of jax or of the JAX package.
 from __future__ import annotations
 
 import json
+import socket
 import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -198,6 +223,17 @@ DEPTH_FRAMES, DEPTH_SEED = 64, 7
 DEPTH_SIM3_SHARE = 0.25
 RGBD_SCALE_FACTOR = 1.5
 DEPTH_STAGES = ("stereo", "rgbd", "orb", "track", "ba", "mapping")
+# the distributed parts on one card: meshes of DIST_SLOTS repeated slots
+# against one; BA and global-BA iteration counts (the JAX package's
+# make_distributed_ba / make_kf_sharded_gba defaults) and timed calls
+DIST_SLOTS = 4
+DIST_BA_ITERS = 10
+GBA_ITERS, GBA_CG_ITERS = 8, 30
+DIST_REPS, GBA_REPS = 5, 2
+# the multihost path: lockstep exchange rounds at most, and the workers'
+# join timeout
+MH_ROUNDS = 8
+MH_TIMEOUT_S = 300
 
 
 def bench_cfg():
@@ -844,6 +880,7 @@ def multimap_path_phase(torch, ph, device):
     from orbslamm_tpu_torch.io.synthetic import make_sequence
     from orbslamm_tpu_torch.models.multimap import MultiMapper
     from orbslamm_tpu_torch.models.system import TrackingState, resolve_frame_poses
+    from orbslamm_tpu_torch.parallel.multihost_mapper import HostMapperBridge
     from orbslamm_tpu_torch.utils.trace import StageTimer
 
     cfg = multimap_cfg()
@@ -855,6 +892,19 @@ def multimap_path_phase(torch, ph, device):
     with StageTimer(device, prefixes=MM_STAGES) as timer:
         mm = MultiMapper(cfg, device=device)
         robots = [mm.add_robot(name) for name in MM_NAMES]
+        # each robot's map as it stands when the first merge is applied: the
+        # multihost phase starts its two processes from these
+        snap = []
+        do_merge = mm._do_merge
+
+        def snapshot_then_merge(*args):
+            if not snap:
+                snap.extend((t.mapctx.map_id, t.mapctx.n_kf, type(t.mapctx.map)(
+                    *(x.clone() for x in t.mapctx.map)), t.mapctx.kf_bow.clone())
+                    for t in robots)
+            return do_merge(*args)
+
+        mm._do_merge = snapshot_then_merge
         offs = []
         for k, t in enumerate(robots):
             i, streak = 0, 0
@@ -897,6 +947,11 @@ def multimap_path_phase(torch, ph, device):
         by_shape = _by_shape(ph.launches_by_shape)
         base = next((m for m in mm.maps if m.map_id == mm.merges[0][1]), None) if mm.merges \
             else None
+        # the maps as the merge found them, packed as the cross-process
+        # bridge ships a map (r0's for process 0, r1's for process 1)
+        bridge = HostMapperBridge(mm)
+        payloads = [bridge._pack_map(SimpleNamespace(map_id=mid, n_kf=n_kf, map=m, kf_bow=b))
+                    for mid, n_kf, m, b in snap]
         # union ATE of both robots' OK frames on the base map under one Sim3
         # (bench.py's merged ATE), poses resolved through reference keyframes
         est_c, gt_c, tags = [], [], []  # tags: (robot, stream frame)
@@ -977,7 +1032,9 @@ def multimap_path_phase(torch, ph, device):
     n_ok = sum(rb["frames_ok"] for rb in per_robot)
     if launches < 2 * n_ok:
         raise AssertionError(f"{launches} kernel launches for {n_ok} tracked frames")
-    return result, split
+    handoff = {"merged_map": base.map, "payloads": payloads, "poses_cw": seq.poses_cw,
+               "fps": cfg.camera.fps}
+    return result, split, handoff
 
 
 def _bank_run(torch, ph, device, cfg, seed):
@@ -988,6 +1045,7 @@ def _bank_run(torch, ph, device, cfg, seed):
     from orbslamm_tpu_torch.io.synthetic import make_sequence
     from orbslamm_tpu_torch.models.multimap import MultiMapper
     from orbslamm_tpu_torch.models.system import TrackingState, resolve_frame_poses
+    from orbslamm_tpu_torch.parallel.multihost import stream_mesh
     from orbslamm_tpu_torch.parallel.streams import StreamBank
     from orbslamm_tpu_torch.utils.trace import StageTimer
 
@@ -1017,7 +1075,10 @@ def _bank_run(torch, ph, device, cfg, seed):
             for j in range(offs[k], start):
                 mm.process_frame(k, seq.images[starts[k] + j], float(seq.timestamps[starts[k] + j]))
         frames0 = [len(t.frames) for t in robots]
-        bank = StreamBank(cfg, robots, device=device, chunk_size=CHUNK)
+        # the robot axis over the local cards (one card: both robots on it)
+        mesh = stream_mesh()
+        print(f"bank mesh: {mesh}", flush=True)
+        bank = StreamBank(cfg, robots, device=device, mesh=mesh, chunk_size=CHUNK)
         # loss recovery inside the bank: a new map on loss (Tracking.cc:330-366)
         bank.on_lost = lambda t: mm._handle_loss(t, 0.0)
         bank.on_chunk_end = mm.pump_merge_scans
@@ -1094,7 +1155,8 @@ def _bank_run(torch, ph, device, cfg, seed):
         "bank_replay_kf": bank.count("bank_replay_kf"),
         "bank_backlog_dropped": bank.count("bank_backlog_dropped"),
         "bank_owner_promoted": bank.count("bank_owner_promoted"),
-        "sync_points": bank.sync_points,
+        "sync_points": bank.sync_points, "mesh": repr(bank.mesh),
+        "slot_devices": [str(d) for d in bank._devs],
         "launches": launches, "launches_by_shape": by_shape,
     }
     split = {k: {"calls": timer.calls[k], "ms": v * 1e3, "ms_per_call": v * 1e3 / timer.calls[k]}
@@ -1358,6 +1420,368 @@ def bank_path_phase(torch, ph, device):
     return result, split
 
 
+def window_problem(torch, cfg, m, slot, window=12, n_fixed=8, seed=0):
+    """Keyframe ``slot``'s local-BA window as the mapping pipeline builds it
+    (models/local_mapping.local_ba_window), as an edge list over the whole
+    landmark pool: one edge per feature slot of each window keyframe. The
+    map already holds this window's optimum, so the free poses are moved by
+    N(0, 1 cm) from a seeded generator to give the solve work."""
+    from orbslamm_tpu_torch.models import map_state as ms
+    from orbslamm_tpu_torch.models.local_mapping import local_ba_window
+    from orbslamm_tpu_torch.ops import ba
+
+    win, win_ok, fixed, lm_idx, feat_ok, sigma2 = local_ba_window(
+        cfg, m, slot, ms.lm_indicator(m), window, n_fixed)
+    total = window + n_fixed
+    T = m.kf_pose[win].clone()
+    noise = torch.randn((total, 3), generator=torch.Generator().manual_seed(seed)) * 0.01
+    T[:, :3, 3] += noise.to(T.device) * (win_ok & ~fixed)[:, None]
+    M = lm_idx.shape[1]
+    return ba.BAProblem(
+        T_cw=T, K=m.kf_K[win], cam_valid=win_ok, cam_fixed=fixed, points=m.lm_pos,
+        point_valid=m.lm_valid,
+        obs_cam=torch.arange(total, device=T.device).repeat_interleave(M).to(torch.int32),
+        obs_point=lm_idx.reshape(-1), obs_uv=m.kf_xy[win].reshape(-1, 2),
+        obs_sigma2=sigma2.reshape(-1), obs_valid=(feat_ok & win_ok[:, None]).reshape(-1))
+
+
+def ba_agreement(torch, prob, got, want) -> dict:
+    """How far two BA solutions of ``prob`` are apart, in the terms the
+    distributed BA is gated on (tests/test_torch_dist_ba.py states the same
+    bounds): poses, cost, inlier masks, the reprojection of every valid
+    observation (pixels), every point (``point_diff_all``) and the points
+    seen by at least 3 cameras (``point_diff_3cams``)."""
+    from orbslamm_tpu_torch.ops import ba
+
+    def reproj(res):
+        return ba._ba_residuals(res.T_cw, prob.K, res.points, prob)[0]
+
+    seen = torch.zeros((prob.T_cw.shape[0], prob.points.shape[0]), dtype=torch.bool,
+                       device=prob.points.device)
+    seen[prob.obs_cam.long()[prob.obs_valid], prob.obs_point.long()[prob.obs_valid]] = True
+    well = seen.sum(0) >= 3
+    dp = (got.points - want.points).norm(dim=1)
+    return {
+        "pose_diff": _max_diff(got.T_cw, want.T_cw),
+        "cost": float(want.cost), "cost_other": float(got.cost),
+        "inlier_mismatches": int((got.obs_inlier != want.obs_inlier).sum()),
+        "reproj_diff_px": float((reproj(got) - reproj(want)).norm(dim=1)[prob.obs_valid].max()),
+        "points_3cams": int(well.sum()), "point_diff_3cams": float(dp[well].max()),
+        "point_diff_all": float(dp.max()),
+    }
+
+
+def ba_agrees(a: dict) -> bool:
+    """The distributed-BA tolerance: poses within 1e-3, cost within 1e-4
+    relative, inlier masks equal, reprojections within 1e-2 px, every point
+    within 5e-3."""
+    return (a["pose_diff"] <= 1e-3 and abs(a["cost_other"] - a["cost"]) <= 1e-4 * abs(a["cost"])
+            and a["inlier_mismatches"] == 0 and a["reproj_diff_px"] <= 1e-2
+            and a["point_diff_all"] <= 5e-3)
+
+
+def gba_agreement(torch, cfg, m, got, want) -> dict:
+    """How far two global-BA solutions of map ``m`` are apart: the robust
+    cost of every valid observation at each, the keyframe poses (largest
+    entry), the two keyframe trajectories' ATE under a Sim3 fit
+    (``eval/ate.py``; a monocular GBA holds one keyframe fixed, which
+    leaves the map's scale free), and the reprojection of every valid
+    observation (pixels). Landmark positions are reported: a landmark whose
+    observing keyframes span well under a degree of parallax moves along
+    its ray by decimetres between two runs of the same unsharded call on
+    the card (atomic sums in another order) while its reprojections move
+    by a fifth of a pixel."""
+    from orbslamm_tpu_torch.eval.ate import ate_from_poses
+    from orbslamm_tpu_torch.ops import ba
+
+    obs = m.kf_obs_lm
+    ok = (obs >= 0) & m.kf_feat_valid & m.kf_valid[:, None]
+    ok &= m.lm_valid[torch.clamp_min(obs, 0).long()]
+    k, f = torch.nonzero(ok, as_tuple=True)
+    lm = obs[k, f].long()
+    sigma2 = (cfg.tracking.pixel_noise * cfg.orb.scale_factor ** m.kf_level[k, f].float()) ** 2
+    prob = ba.BAProblem(T_cw=m.kf_pose, K=m.kf_K, cam_valid=m.kf_valid, cam_fixed=m.kf_fixed,
+                        points=m.lm_pos, point_valid=m.lm_valid, obs_cam=k.to(torch.int32),
+                        obs_point=lm.to(torch.int32), obs_uv=m.kf_xy[k, f], obs_sigma2=sigma2,
+                        obs_valid=torch.ones_like(sigma2, dtype=torch.bool))
+
+    def cost(x):
+        return float(ba._ba_cost(x.kf_pose, x.kf_K, x.lm_pos, prob, prob.obs_valid, ba.CHI2_MONO))
+
+    def reproj(x):
+        T, K = x.kf_pose[k], x.kf_K[k]
+        pc = torch.einsum("eij,ej->ei", T[:, :3, :3], x.lm_pos[lm]) + T[:, :3, 3]
+        z = torch.clamp_min(pc[:, 2], 1e-6)
+        return torch.stack([K[:, 0, 0] * pc[:, 0] / z, K[:, 1, 1] * pc[:, 1] / z], -1)
+
+    kv = m.kf_valid.cpu().numpy()
+    lv = m.lm_valid
+    front = (torch.einsum("eij,ej->ei", want.kf_pose[k][:, :3, :3], want.lm_pos[lm])
+             + want.kf_pose[k][:, :3, 3])[:, 2] > 1e-3
+    return {
+        "cost": cost(want), "cost_other": cost(got),
+        "pose_diff": _max_diff(got.kf_pose, want.kf_pose),
+        "kf_ate_sim3_m": float(ate_from_poses(got.kf_pose.cpu().numpy()[kv],
+                                              want.kf_pose.cpu().numpy()[kv])),
+        "reproj_diff_px": float((reproj(got) - reproj(want)).norm(dim=1)[front].max()),
+        "landmark_diff_all": float((got.lm_pos - want.lm_pos).norm(dim=1)[lv].max()),
+    }
+
+
+def gba_agrees(a: dict) -> bool:
+    """The keyframe-sharded GBA's tolerance: cost within 1e-3 relative (the
+    global-BA parity bound of tests/test_torch_loop_closing.py), the
+    keyframe trajectories within 1 mm ATE (Sim3), every observation's
+    reprojection within 1 px (under the 1.2 px measurement noise at
+    pyramid level 0)."""
+    return (abs(a["cost_other"] - a["cost"]) <= 1e-3 * abs(a["cost"])
+            and a["kf_ate_sim3_m"] <= 1e-3 and a["reproj_diff_px"] <= 1.0)
+
+
+def _call_ms(torch, fn, reps=DIST_REPS):
+    """Median synchronized wall time of ``fn()`` over ``reps`` calls, ms."""
+    ts = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ts))
+
+
+def _max_diff(a, b) -> float:
+    return float((a - b).abs().max()) if a.numel() else 0.0
+
+
+def dist_ba_phase(torch, device, images, cfg, prob, merged_map, gba_cfg):
+    """The distributed parts on one card: each check runs over a mesh of
+    DIST_SLOTS ``cuda:0`` slots and over one slot, against the unsharded
+    call. The stream extractor on 4 bench-size frames (exact against the
+    per-frame extractor); make_distributed_ba on the main path's last
+    local-BA window (``prob``, gated by ``ba_agrees``); make_kf_sharded_gba
+    on the multi-map path's merged map (128 keyframes, 8192 landmarks)
+    against ``loop_closing.global_bundle_adjust`` with every observation
+    slot, at GBA_ITERS / GBA_CG_ITERS, gated by ``gba_agrees``. The
+    tolerances are the CPU tests'
+    (tests/test_torch_dist_ba.py). ms per call is for 1 and for DIST_SLOTS
+    slots: on one card, the partitioning overhead."""
+    from orbslamm_tpu_torch.models import loop_closing as lc
+    from orbslamm_tpu_torch.ops import ba, orb
+    from orbslamm_tpu_torch.parallel import dist_ba
+    from orbslamm_tpu_torch.parallel.multihost import stream_mesh
+
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    meshes = {1: stream_mesh([dev]), DIST_SLOTS: stream_mesh([dev] * DIST_SLOTS)}
+    print(f"dist_ba meshes: {meshes[1]}, {meshes[DIST_SLOTS]}", flush=True)
+    out = {"slots": DIST_SLOTS, "mesh": repr(meshes[DIST_SLOTS])}
+
+    # 1. stream extraction
+    one = orb.make_extractor(cfg.orb, cfg.camera, device=dev)
+    want = [one(img) for img in images]
+    ext = {n: dist_ba.make_stream_extractor(
+        mesh, lambda d: orb.make_extractor(cfg.orb, cfg.camera, device=d))
+        for n, mesh in meshes.items()}
+    got = ext[DIST_SLOTS](images)
+    bad = [(s, f) for s, (g, w) in enumerate(zip(got, want))
+           for f in ("xy", "xy_raw", "angle", "response", "level", "desc", "valid")
+           if not torch.equal(getattr(g, f), getattr(w, f))]
+    out["extract"] = {"frames": len(images), "size": list(images[0].shape),
+                      "keypoints": [int(f.valid.sum()) for f in got], "mismatches": bad,
+                      "ms": {n: _call_ms(torch, lambda e=e: e(images)) for n, e in ext.items()}}
+
+    # 2. edge-sharded BA on the local-BA window
+    ref = ba.bundle_adjust(prob, iters=DIST_BA_ITERS)
+    steps = {n: dist_ba.make_distributed_ba(mesh, iters=DIST_BA_ITERS)
+             for n, mesh in meshes.items()}
+    sharded = {n: dist_ba.shard_ba_problem(prob, mesh) for n, mesh in meshes.items()}
+    res = steps[DIST_SLOTS](sharded[DIST_SLOTS])
+    out["ba"] = {
+        "cameras": int(prob.cam_valid.sum()), "free": int((prob.cam_valid & ~prob.cam_fixed).sum()),
+        "edges": int(prob.obs_valid.sum()), "edge_slots": int(prob.obs_valid.numel()),
+        "points": int(prob.point_valid.sum()), "iters": DIST_BA_ITERS,
+        "cost_start": float(ba._ba_cost(prob.T_cw, prob.K, prob.points, prob, prob.obs_valid,
+                                        ba.CHI2_MONO)),
+        "inliers": int(ref.obs_inlier.sum()), **ba_agreement(torch, prob, res, ref),
+        "ms": {n: _call_ms(torch, lambda n=n: steps[n](sharded[n])) for n in meshes}}
+
+    # 3. keyframe-block-sharded GBA on the merged map
+    M = merged_map.kf_obs_lm.shape[1]
+    g_ref, _ = lc.global_bundle_adjust(gba_cfg, merged_map, iters=GBA_ITERS,
+                                       cg_iters=GBA_CG_ITERS, obs_per_kf=M)
+    gbas = {n: dist_ba.make_kf_sharded_gba(mesh, gba_cfg, iters=GBA_ITERS, cg_iters=GBA_CG_ITERS)
+            for n, mesh in meshes.items()}
+    blocks = {n: dist_ba.shard_map_kf_blocks(merged_map, mesh) for n, mesh in meshes.items()}
+    g = dist_ba.gather_map_kf_blocks(gbas[DIST_SLOTS](blocks[DIST_SLOTS]), dev)
+    lv = merged_map.lm_valid
+    out["gba"] = {
+        "keyframes": int(merged_map.kf_valid.sum()), "keyframe_slots": merged_map.kf_pose.shape[0],
+        "landmarks": int(lv.sum()), "landmark_slots": lv.shape[0],
+        "edges": int((merged_map.kf_obs_lm >= 0).sum()), "iters": GBA_ITERS,
+        "cg_iters": GBA_CG_ITERS, "pose_moved": _max_diff(g_ref.kf_pose, merged_map.kf_pose),
+        **gba_agreement(torch, gba_cfg, merged_map, g, g_ref),
+        "ms": {n: _call_ms(torch, lambda n=n: gbas[n](blocks[n]), reps=GBA_REPS) for n in meshes}}
+    print("dist_ba " + json.dumps(out), flush=True)
+    e, b, gb = out["extract"], out["ba"], out["gba"]
+    if e["mismatches"]:
+        raise AssertionError(f"dist_ba: stream extraction differs: {e['mismatches']}")
+    if not (ba_agrees(b) and b["cost"] < b["cost_start"]):
+        raise AssertionError(f"dist_ba: the edge-sharded BA is off: {b}")
+    if not (gba_agrees(gb) and gb["pose_moved"] > 0):
+        raise AssertionError(f"dist_ba: the keyframe-sharded GBA is off: {gb}")
+    return out
+
+
+def multihost_path_phase(torch, handoff, mm_result):
+    """Two worker processes on the one card (``chip_smoke.py
+    --multihost-worker``), joined over gloo by the port's
+    ``multihost.initialize``: process p starts from robot p's map as the
+    multi-map path held it when its first merge was applied (from the
+    maps at the start of that span neither process merged: the in-process
+    merge matched a keyframe that the span added), packed with the
+    bridge's own ``_pack_map``. Process 0 broadcasts the
+    vocabulary (``broadcast_pytree``); each registers its map with a fresh
+    MultiMapper (a robot on it, so the map ships as a copy) and calls
+    ``HostMapperBridge.pump()`` in lockstep until a process merges, at most
+    MH_ROUNDS rounds. Asserts both workers exit 0 after the same number of
+    exchanges, a map imported, a merge, and each merged map's keyframes
+    within 0.6 m ATE (Sim3) of the sequence's ground truth. A worker that
+    fails, or does not finish within MH_TIMEOUT_S, fails the phase."""
+    io_dir = REPO / "build" / "multihost"
+    io_dir.mkdir(parents=True, exist_ok=True)
+    for pid, blob in enumerate(handoff["payloads"]):
+        (io_dir / f"map{pid}.pkl").write_bytes(blob)
+    np.savez(io_dir / "truth.npz", poses_cw=handoff["poses_cw"], fps=handoff["fps"])
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), "--multihost-worker",
+                               str(pid), str(port), str(io_dir)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for pid in range(2)]
+    try:
+        outs = [p.communicate(timeout=MH_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for pid, (p, text) in enumerate(zip(procs, outs)):
+        print(f"multihost worker {pid} (rc {p.returncode}):\n" + "\n".join(
+            text.splitlines()[-12:]), flush=True)
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError(f"multihost path: worker exit codes {[p.returncode for p in procs]}")
+    reports = [json.loads((io_dir / f"worker{pid}.json").read_text()) for pid in range(2)]
+    result = {
+        "processes": 2, "rounds_max": MH_ROUNDS,
+        "payload_bytes": [len(b) for b in handoff["payloads"]],
+        "workers": reports,
+        "launches": sum(r["launches"] for r in reports),
+        "in_process_merge": {"merges": mm_result["merges"],
+                             "merged_map": mm_result["merged_map"],
+                             "merged_ate_m": mm_result["merged_ate_m"]},
+    }
+    print("multihost_path " + json.dumps(result), flush=True)
+    if reports[0]["exchanges"] != reports[1]["exchanges"]:
+        raise AssertionError("multihost path: the workers ran different exchange counts")
+    if sum(r["imported"] for r in reports) < 1 or not any(r["merges"] for r in reports):
+        raise AssertionError("multihost path: no map imported and merged")
+    for r in reports:
+        if r["merges"] and not (r["merged_kf_ate_m"] < 0.6):
+            raise AssertionError(f"multihost path: merged keyframe ATE {r['merged_kf_ate_m']} m "
+                                 f"in process {r['process']}")
+    return result
+
+
+def multihost_worker(argv) -> int:
+    """One process of the multihost phase: ``chip_smoke.py
+    --multihost-worker <process id> <port> <dir>``; reads map<id>.pkl and
+    truth.npz from <dir> and writes worker<id>.json there."""
+    pid, port, io_dir = int(argv[0]), int(argv[1]), Path(argv[2])
+    import dataclasses
+    import pickle
+
+    import torch
+
+    if not torch.cuda.is_available() or not (REPO / "orbslamm_tpu_torch").is_dir():
+        print("chip_smoke worker: needs a CUDA device and the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO))
+    import orbslamm_tpu_torch  # noqa: F401  (pins float32 / TF32 off)
+    from orbslamm_tpu_torch import convert
+    from orbslamm_tpu_torch.eval.ate import ate_from_poses
+    from orbslamm_tpu_torch.models.multimap import MultiMapper
+    from orbslamm_tpu_torch.ops import bow
+    from orbslamm_tpu_torch.ops.cuda import hamming as ph
+    from orbslamm_tpu_torch.parallel import multihost as mh
+    from orbslamm_tpu_torch.parallel.multihost_mapper import HostMapperBridge
+    from orbslamm_tpu_torch.utils.trace import StageTimer
+
+    device = "cuda"
+    ph.build()
+    t0 = time.perf_counter()
+    mh.initialize(f"localhost:{port}", 2, pid, timeout_s=120)
+    voc_np = (convert.vocabulary_to_numpy(bow.load_vocabulary_npz(VOCAB, device="cpu"))
+              if pid == 0 else None)
+    voc = convert.vocabulary_from_numpy(mh.broadcast_pytree(voc_np, max_len=1 << 20),
+                                        device=device)
+    join_s = time.perf_counter() - t0
+    cfg = dataclasses.replace(multimap_cfg(), vocabulary_path=None)
+    mm = MultiMapper(cfg, device=device)
+    mm.voc = voc
+    robot = mm.add_robot(f"host{pid}")
+    mc = robot.mapctx
+    payload = pickle.loads((io_dir / f"map{pid}.pkl").read_bytes())
+    mc.map = convert.map_state_from_numpy(payload["map"], device=device)
+    mc.n_kf = payload["n_kf"]
+    mc.kf_bow = convert.kf_bow_from_numpy(payload["kf_bow"], device=device)
+    truth = np.load(io_dir / "truth.npz")
+    # a bench-size map pickles to about 21 MB (128 keyframes of 2048
+    # features, their BoW rows): above the bridge's default 8 MB bound
+    bridge = HostMapperBridge(mm, payload_max=1 << 25)
+    ph.launches = 0  # counts from here on are this worker's share of the path
+    exchanges, merged = 0, False
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with StageTimer(device, prefixes=("multihost", "merge")) as timer:
+        for _ in range(MH_ROUNDS):
+            merged = bridge.pump() or merged
+            exchanges += 1
+            # lockstep: every process stops after the round in which one merged
+            if b"1" in mh.all_gather_bytes(b"1" if merged else b"0"):
+                break
+        torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    mh.barrier()
+    report = {
+        "process": pid, "source_map": payload["map_id"], "source_n_kf": payload["n_kf"],
+        "join_s": join_s, "run_s": run_s, "exchanges": exchanges,
+        "exchange_ms_per_call": (timer.seconds["multihost.exchange"] * 1e3
+                                 / timer.calls["multihost.exchange"]),
+        "imported": len(bridge._imported), "transfers": bridge.transfers,
+        "events": [e for e, _ in bridge.events],
+        "shipped_bytes": len(bridge._pack_map(mc)) if mc.map_id in bridge._shipped else 0,
+        "merges": [list(x) for x in mm.merges], "launches": ph.launches,
+        "stages": {k: {"calls": timer.calls[k], "ms": v * 1e3}
+                   for k, v in sorted(timer.seconds.items())},
+    }
+    if mm.merges:
+        base = next(m for m in mm.maps if m.map_id == mm.merges[0][1])
+        kv = base.map.kf_valid.cpu().numpy()
+        idx = np.minimum(np.round(base.map.kf_timestamp.cpu().numpy()[kv] * float(truth["fps"])),
+                         len(truth["poses_cw"]) - 1).astype(int)
+        report.update(
+            merged_keyframes=int(kv.sum()), merged_landmarks=int(base.map.lm_valid.sum()),
+            merged_kf_ate_m=float(ate_from_poses(base.map.kf_pose.cpu().numpy()[kv],
+                                                 truth["poses_cw"][idx])))
+    (io_dir / f"worker{pid}.json").write_text(json.dumps(report))
+    print(f"worker {pid}: {json.dumps(report)}", flush=True)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -1396,12 +1820,20 @@ def main() -> int:
     main_launches = ph.launches
     phase("split", split_phase, torch, sess, seq, i, result["chunk_s_median"])
     phase("vocab_training", vocab_training_phase, torch, sess.map)
+    # the dist_ba phase's inputs from the main path: its newest keyframe's
+    # local-BA window and four of its frames
+    newest = int(torch.nonzero(sess.map.kf_valid).max())
+    window = window_problem(torch, bench_cfg(), sess.map, newest)
+    frames = list(seq.images[:4])
     del sess
     loop_result, _ = phase("loop_path", loop_path_phase, torch, ph, device)
-    mm_result, _ = phase("multimap_path", multimap_path_phase, torch, ph, device)
+    mm_result, _, handoff = phase("multimap_path", multimap_path_phase, torch, ph, device)
     bank_result, _ = phase("bank_path", bank_path_phase, torch, ph, device)
     stereo_result, _ = phase("stereo_path", depth_path_phase, torch, ph, device, "stereo")
     rgbd_result, _ = phase("rgbd_path", depth_path_phase, torch, ph, device, "rgbd")
+    dist_result = phase("dist_ba", dist_ba_phase, torch, device, frames, bench_cfg(), window,
+                        handoff["merged_map"], multimap_cfg())
+    mh_result = phase("multihost_path", multihost_path_phase, torch, handoff, mm_result)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     print("phase_walls_s " + json.dumps(walls), flush=True)
@@ -1415,7 +1847,7 @@ def main() -> int:
         "replaces": "orbslamm_tpu/ops/pallas/hamming.py:208",
         "launches": (main_launches + loop_result["launches"] + mm_result["launches"]
                      + bank_result["launches"] + stereo_result["launches"]
-                     + rgbd_result["launches"]),
+                     + rgbd_result["launches"] + mh_result["launches"]),
         "max_abs_err": err,
         "ms": local["call_us"] / 1e3,
         "plain_ms": local["plain_ms"],
@@ -1446,6 +1878,16 @@ def main() -> int:
               f"Sim3 ATE {r['ate_sim3_m']:.4f} m, scale error {r['scale_err']:.4f}, "
               f"{r['launches_per_tracked_frame']:.2f} launches per tracked frame on {smi}",
               flush=True)
+    for name in ("extract", "ba", "gba"):
+        ms_ = dist_result[name]["ms"]
+        print(f"dist_ba {name}: {ms_[1]:.2f} ms per call on 1 slot, {ms_[DIST_SLOTS]:.2f} ms "
+              f"on {DIST_SLOTS} slots of one card on {smi}", flush=True)
+    for r in mh_result["workers"]:
+        print(f"multihost process {r['process']}: {r['exchanges']} exchanges, "
+              f"{r['exchange_ms_per_call']:.1f} ms per exchange, shipped {r['shipped_bytes']} "
+              f"bytes, imported {r['imported']}, merges {r['merges']}, merged keyframes "
+              f"{r.get('merged_keyframes')}, landmarks {r.get('merged_landmarks')}, keyframe "
+              f"ATE {r.get('merged_kf_ate_m')} m on {smi}", flush=True)
     print(smi, flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1455,4 +1897,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--multihost-worker"]:
+        sys.exit(multihost_worker(sys.argv[2:]))
     sys.exit(main())

@@ -16,6 +16,8 @@ stereo rig (``camera.bf > 0``) local BA carries the stereo rows.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from orbslamm_tpu_torch.utils.config import SlamConfig
@@ -191,12 +193,25 @@ def _create_depth_landmarks(cfg, m, kf_slot, depth, max_new, close_only):
     return m._replace(kf_obs_lm=ms.set_row_cols(m.kf_obs_lm, kf_slot, feat_idx, slots, use))
 
 
-def _local_ba(cfg, m, kf_slot, ind, window: int, n_fixed: int, iters: int):
-    """Windowed Schur BA around the new keyframe (Optimizer.cc:475): the
-    top-``window`` covisible keyframes are free, the next ``n_fixed`` are
-    fixed anchors that pin the window's gauge and scale."""
+class LocalBAWindow(NamedTuple):
+    """Keyframe ``kf_slot``'s local-BA window (``local_ba_window``)."""
+
+    win: torch.Tensor  # [W] keyframe slots, kf_slot first
+    win_ok: torch.Tensor  # [W] bool: a valid covisible keyframe
+    fixed: torch.Tensor  # [W] bool: held fixed in the BA
+    lm_idx: torch.Tensor  # [W,M] landmark of each feature (0 where none)
+    feat_ok: torch.Tensor  # [W,M] bool: the feature observes a valid landmark
+    sigma2: torch.Tensor  # [W,M] measurement variance from the feature's level
+
+
+def local_ba_window(cfg, m, kf_slot, ind, window: int, n_fixed: int) -> LocalBAWindow:
+    """The window of the local BA around keyframe ``kf_slot``
+    (Optimizer.cc:475): the top ``window + n_fixed`` covisible keyframes by
+    shared landmarks (``ind``: the map's keyframe-landmark indicator), with
+    ``kf_slot`` first; the first ``window`` are free, the oldest of them and
+    the next ``n_fixed`` are fixed anchors that pin the window's gauge and
+    scale."""
     Wc = ms.covisibility(m, ind)
-    K_pool, Mfeat = m.kf_obs_lm.shape
     dev = Wc.device
     total = window + n_fixed
     row = torch.where(m.kf_valid, Wc[kf_slot], torch.full_like(Wc[0], -1))
@@ -213,6 +228,16 @@ def _local_ba(cfg, m, kf_slot, ind, window: int, n_fixed: int, iters: int):
     feat_ok = feat_ok & m.lm_valid[lm_idx]
     sigma2 = (cfg.tracking.pixel_noise
               * cfg.orb.scale_factor ** m.kf_level[win].to(torch.float32)) ** 2
+    return LocalBAWindow(win, win_ok, fixed, lm_idx, feat_ok, sigma2)
+
+
+def _local_ba(cfg, m, kf_slot, ind, window: int, n_fixed: int, iters: int):
+    """Windowed Schur BA around the new keyframe (Optimizer.cc:475) over
+    ``local_ba_window``'s keyframes."""
+    win, win_ok, fixed, lm_idx, feat_ok, sigma2 = local_ba_window(
+        cfg, m, kf_slot, ind, window, n_fixed)
+    dev = win.device
+    total = window + n_fixed
     # stereo edges (EdgeStereoSE3ProjectXYZ) ride along with a stereo rig
     stereo = cfg.camera.bf > 0
     res = ba.bundle_adjust_window(

@@ -1,6 +1,11 @@
 """Nonlinear least squares (port of orbslamm_tpu/ops/ba.py, monocular edges):
 motion-only BA, window Schur BA, the Sim3 pose graph, Sim3 refinement and
-the edge-list BA with a matrix-free Schur solve (global BA).
+the edge-list BAs, with a dense Schur solve (``bundle_adjust``) and with a
+matrix-free one (``bundle_adjust_cg``, global BA). Each edge-list BA is an
+edge pass per block of edges (residuals, Jacobians, partial normal-equation
+blocks) and one solve on the poses' device; ``*_shards`` take the edges in
+blocks on any devices (``parallel/dist_ba.py``), and one block is the
+single-device call.
 
 All are fixed-count Levenberg–Marquardt loops. Where the JAX package skips
 the iterations after convergence with ``lax.cond`` inside ``lax.scan``, a
@@ -692,6 +697,184 @@ def _ba_cost(T_cw, K, points, p: BAProblem, use, chi2_th):
     return _ba_cost_from_residual(r, pc, p, use, chi2_th)
 
 
+def _sum_to(parts, dev):
+    """Per-shard partial sums added on ``dev`` in shard order (the all-reduce
+    that GSPMD inserts in the JAX package). One part is returned as it is."""
+    out = parts[0].to(dev)
+    for x in parts[1:]:
+        out = out + x.to(dev)
+    return out
+
+
+def _to_shards(x, shards):
+    """``x`` on every shard's device (no copy where it already lies there)."""
+    return [x.to(s.obs_cam.device) for s in shards]
+
+
+def _place_shards(p: BAProblem, shards) -> list:
+    """Each edge shard with the static camera and point fields of ``p``
+    (intrinsics, validity, gauge, stereo baseline) on the shard's device.
+    The poses and points change every LM step and are passed on their own."""
+    out = []
+    for s in shards:
+        dev = s.obs_cam.device
+        out.append(s._replace(
+            K=p.K.to(dev), cam_valid=p.cam_valid.to(dev), cam_fixed=p.cam_fixed.to(dev),
+            point_valid=p.point_valid.to(dev), bf=None if p.bf is None else p.bf.to(dev)))
+    return out
+
+
+def _edge_pass(T_cw, points, s: BAProblem, chi2_e, dense: bool):
+    """One shard's edge pass at the current poses and points: residuals,
+    robust weights and Jacobians of its edges, reduced into the partial
+    normal-equation blocks. Returns (partials, Wcp): partials are
+    ``Hcc`` [C,6,6], ``Hpp`` [P,3,3], ``gc`` [C,6], ``gp`` [P,3],
+    ``w_per_pt`` [P], the current cost and, with ``dense``, ``Wd``
+    [C,P,6,3]; ``Wcp`` [E,6,3] is the per-edge camera-point block, which
+    stays on the shard (the CG's edge products read it)."""
+    C, Pn = T_cw.shape[0], points.shape[0]
+    oc, op = s.obs_cam.long(), s.obs_point.long()
+    r, pc, Tc, Kc = _ba_residuals(T_cw, s.K, points, s)
+    use = s.obs_valid & s.cam_valid[oc] & s.point_valid[op] & (pc[:, 2] > 1e-3)
+    w = _robust_weights(r, s.obs_sigma2, use, chi2_e)
+    Jc, Jp = _ba_jacobians(Kc, Tc, pc, s)
+    # fixed cameras' Jacobians are zero: no update, no Schur coupling
+    Jc = Jc * (~s.cam_fixed)[oc][:, None, None]
+    wJc = Jc * w[:, None, None]
+    wJp = Jp * w[:, None, None]
+    parts = {
+        "Hcc": _seg_add(C, oc, torch.einsum("eia,eib->eab", wJc, Jc)),
+        "Hpp": _seg_add(Pn, op, torch.einsum("eia,eib->eab", wJp, Jp)),
+        "gc": _seg_add(C, oc, torch.einsum("eia,ei->ea", wJc, r)),
+        "gp": _seg_add(Pn, op, torch.einsum("eia,ei->ea", wJp, r)),
+        "w_per_pt": _seg_add(Pn, op, w),
+        "cost": _ba_cost_from_residual(r, pc, s, s.obs_valid, chi2_e),
+    }
+    Wcp = torch.einsum("eia,eib->eab", wJc, Jp)  # [E,6,3]
+    if dense:
+        parts["Wd"] = _seg_add(C * Pn, oc * Pn + op, Wcp).reshape(C, Pn, 6, 3)
+    return parts, Wcp
+
+
+def _reduce(partials, dev) -> dict:
+    return {k: _sum_to([pt[k] for pt in partials], dev) for k in partials[0]}
+
+
+def _damped_blocks(red, lam):
+    """LM damping (an absolute floor keeps barely observed blocks
+    invertible); points without an effective observation get an identity
+    block. Returns (Hcc_d, Hpp_inv, observed)."""
+    dev = red["Hcc"].device
+    eye3 = torch.eye(3, dtype=torch.float32, device=dev)
+    eye6 = torch.eye(6, dtype=torch.float32, device=dev)
+    Hcc, Hpp = red["Hcc"], red["Hpp"]
+    tr_c = torch.diagonal(Hcc, dim1=-2, dim2=-1).sum(-1)
+    Hcc_d = Hcc + ((lam + 1e-5) * eye6)[None] * torch.clamp_min(tr_c / 6.0, 1.0)[:, None, None]
+    tr_p = torch.diagonal(Hpp, dim1=-2, dim2=-1).sum(-1)
+    Hpp_d = Hpp + ((lam + 1e-5) * eye3)[None] * torch.clamp_min(tr_p / 3.0, 1.0)[:, None, None]
+    observed = red["w_per_pt"] > 1e-9
+    Hpp_d = torch.where(observed[:, None, None], Hpp_d, eye3[None])
+    return Hcc_d, _inv3x3(Hpp_d), observed
+
+
+def _trial_cost(T_new, pts_new, shards, chi2s, dev):
+    parts = [_ba_cost(Tn, s.K, pn, s, s.obs_valid, c2)
+             for Tn, pn, s, c2 in zip(_to_shards(T_new, shards), _to_shards(pts_new, shards),
+                                      shards, chi2s)]
+    return _sum_to(parts, dev)
+
+
+def _final_pass(T_cw, points, shards, chi2s, dev, with_cost: bool):
+    """Per-shard chi2 inlier masks at the solution, and with ``with_cost``
+    the summed robust cost there (else None)."""
+    inliers, costs = [], []
+    for Tn, pn, s, c2 in zip(_to_shards(T_cw, shards), _to_shards(points, shards), shards, chi2s):
+        r, pc, _, _ = _ba_residuals(Tn, s.K, pn, s)
+        chi2 = (r * r).sum(-1) / s.obs_sigma2
+        inliers.append(s.obs_valid & (chi2 <= c2) & (pc[:, 2] > 1e-3))
+        if with_cost:
+            costs.append(_ba_cost_from_residual(r, pc, s, s.obs_valid, c2))
+    return tuple(inliers), _sum_to(costs, dev) if with_cost else None
+
+
+def bundle_adjust(p: BAProblem, iters: int = 10, chi2_th: float = CHI2_MONO,
+                  lam0: float = 1e-4) -> BAResult:
+    """Levenberg–Marquardt BA with a dense Schur-complement camera solve
+    (reference Optimizer::BundleAdjustment / LocalBundleAdjustment,
+    Optimizer.cc:67/:475): per-point 3x3 blocks inverted in batch, the
+    reduced camera system a dense [6C, 6C] solve, fixed cameras constrain
+    but receive no update. Stops early as the JAX package does: a step
+    that is accepted, tiny and gains nothing, or a rejected step at the
+    damping cap, freezes the carry for the remaining iterations."""
+    with stage("ba.dense"):
+        res = bundle_adjust_shards(p, [p], iters, chi2_th, lam0)
+    return res._replace(obs_inlier=res.obs_inlier[0])
+
+
+def bundle_adjust_shards(p: BAProblem, shards, iters: int = 10, chi2_th: float = CHI2_MONO,
+                         lam0: float = 1e-4) -> BAResult:
+    """``bundle_adjust`` with the observation edges split into ``shards``
+    (BAProblems whose edge fields are one block of the edge list each, on
+    any device; their other fields are not read). The poses, points and the
+    solve live on ``p``'s device; each LM step runs every shard's edge pass
+    on its own device and sums the partial blocks there, in shard order.
+    With ``shards == [p]`` this is ``bundle_adjust``. Returns a BAResult
+    whose ``obs_inlier`` holds one mask per shard."""
+    dev = p.T_cw.device
+    C, Pn = p.T_cw.shape[0], p.points.shape[0]
+    shards = _place_shards(p, shards)
+    chi2s = [_chi2_per_edge(s, chi2_th) for s in shards]
+    lock = p.cam_fixed | ~p.cam_valid
+    lockv = lock.repeat_interleave(6)
+    eyeC = torch.eye(C * 6, dtype=torch.float32, device=dev)
+    T_cw, points = p.T_cw, p.points
+    lam = torch.tensor(lam0, dtype=torch.float32, device=dev)
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    for _ in range(iters):
+        parts = [_edge_pass(Tn, pn, s, c2, True)[0]
+                 for Tn, pn, s, c2 in zip(_to_shards(T_cw, shards), _to_shards(points, shards),
+                                          shards, chi2s)]
+        red = _reduce(parts, dev)
+        Hcc_d, Hpp_inv, observed = _damped_blocks(red, lam)
+        Wd, gc, gp = red["Wd"], red["gc"], red["gp"]
+        # S = Hcc - W Hpp^-1 W^T ; rhs = gc - W Hpp^-1 gp
+        WHinv = torch.einsum("cpab,pbd->cpad", Wd, Hpp_inv)
+        Sfull = -torch.einsum("cpad,qpbd->cqab", WHinv, Wd)  # [C,C,6,6]
+        ar = torch.arange(C, device=dev)
+        Sfull[ar, ar] += Hcc_d
+        rhs = gc - torch.einsum("cpad,pd->ca", WHinv, gp)
+        Smat = Sfull.permute(0, 2, 1, 3).reshape(C * 6, C * 6)
+        # fixed or invalid cameras: identity rows, no update
+        Smat = torch.where(lockv[:, None] | lockv[None, :], eyeC, Smat)
+        rhsv = torch.where(lockv, torch.zeros_like(lockv, dtype=torch.float32), rhs.reshape(-1))
+        dc = -torch.linalg.solve_ex(Smat, rhsv[:, None])[0][:, 0].reshape(C, 6)
+        # back-substitute the points: dp = -Hpp^-1 (gp + W^T dc)
+        Wt_dc = torch.einsum("cpab,ca->pb", Wd, dc)
+        dp = -torch.einsum("pab,pb->pa", Hpp_inv, gp + Wt_dc)
+        dp = dp * (p.point_valid & observed)[:, None]
+
+        T_new = geo.se3_exp(dc) @ T_cw
+        T_new = torch.where(lock[:, None, None], T_cw, T_new)
+        pts_new = points + dp
+        c_old = red["cost"]
+        c_new = _trial_cost(T_new, pts_new, shards, chi2s, dev)
+        finite = torch.isfinite(c_new) & torch.isfinite(T_new).all() & torch.isfinite(pts_new).all()
+        better = (c_new < c_old) & finite
+        lam_new = torch.where(better, torch.clamp_min(lam * 0.3, 1e-8),
+                              torch.clamp_max(lam * 5.0, 1e3))
+        # converged (both a tiny accepted step and a negligible gain), or
+        # pinned damping with no acceptable step: the carry freezes
+        step_sq = (dc * dc).sum() + (dp * dp).sum()
+        done_new = ((better & (c_old - c_new <= 1e-5 * c_old) & (step_sq < 1e-10))
+                    | (~better & (lam_new >= 1e3)))
+        T_cw = _freeze(done, T_cw, torch.where(better, T_new, T_cw))
+        points = _freeze(done, points, torch.where(better, pts_new, points))
+        lam = _freeze(done, lam, lam_new)
+        done = done | done_new
+    inliers, cost = _final_pass(T_cw, points, shards, chi2s, dev, with_cost=True)
+    return BAResult(T_cw=T_cw, points=points, obs_inlier=inliers, cost=cost)
+
+
 def bundle_adjust_cg(p: BAProblem, iters: int = 10, cg_iters: int = 30,
                      chi2_th: float = CHI2_MONO, lam0: float = 1e-4) -> BAResult:
     """LM bundle adjustment with a matrix-free Schur solve (reference
@@ -700,62 +883,63 @@ def bundle_adjust_cg(p: BAProblem, iters: int = 10, cg_iters: int = 30,
     matrix-vector product is three edge-wise segment sums (``index_add_``).
     ``cost`` is the last iteration's trial cost, as in the JAX package."""
     with stage("ba.global_cg"):
-        return _bundle_adjust_cg(p, iters, cg_iters, chi2_th, lam0)
+        res = bundle_adjust_cg_shards(p, [p], iters, cg_iters, chi2_th, lam0)
+    return res._replace(obs_inlier=res.obs_inlier[0])
 
 
-def _bundle_adjust_cg(p, iters, cg_iters, chi2_th, lam0):
+def bundle_adjust_cg_shards(p: BAProblem, shards, iters: int = 10, cg_iters: int = 30,
+                            chi2_th: float = CHI2_MONO, lam0: float = 1e-4) -> BAResult:
+    """``bundle_adjust_cg`` with the observation edges split into ``shards``
+    (as in ``bundle_adjust_shards``). Each shard keeps its edges' Jacobian
+    blocks; once per LM step its partial blocks are summed on ``p``'s
+    device, and once per CG iteration the [P,3] and [C,6] partials of its
+    edge products. With ``shards == [p]`` this is ``bundle_adjust_cg``.
+    ``obs_inlier`` holds one mask per shard."""
     C = p.T_cw.shape[0]
-    Pn = p.points.shape[0]
     dev = p.points.device
-    oc, op = p.obs_cam.long(), p.obs_point.long()
-    chi2_e = _chi2_per_edge(p, chi2_th)
-    eye3 = torch.eye(3, dtype=torch.float32, device=dev)
     eye6 = torch.eye(6, dtype=torch.float32, device=dev)
+    shards = _place_shards(p, shards)
+    chi2s = [_chi2_per_edge(s, chi2_th) for s in shards]
+    ocs = [s.obs_cam.long() for s in shards]
+    ops = [s.obs_point.long() for s in shards]
+    Pn = p.points.shape[0]
     lock = p.cam_fixed | ~p.cam_valid
-    free = ~p.cam_fixed
-    use0 = p.obs_valid & p.cam_valid[oc] & p.point_valid[op]
-
-    def seg_cam(v):
-        return _seg_add(C, oc, v)
-
-    def seg_pt(v):
-        return _seg_add(Pn, op, v)
 
     T_cw, points = p.T_cw, p.points
     lam = torch.tensor(lam0, dtype=torch.float32, device=dev)
     c_new = None
     for _ in range(iters):
-        r, pc, Tc, Kc = _ba_residuals(T_cw, p.K, points, p)
-        use = use0 & (pc[:, 2] > 1e-3)
-        w = _robust_weights(r, p.obs_sigma2, use, chi2_e)
-        Jc, Jp = _ba_jacobians(Kc, Tc, pc, p)
-        Jc = Jc * free[oc][:, None, None]
-        wJc = Jc * w[:, None, None]
-        wJp = Jp * w[:, None, None]
-        Hcc = seg_cam(torch.einsum("eia,eib->eab", wJc, Jc))
-        Hpp = seg_pt(torch.einsum("eia,eib->eab", wJp, Jp))
-        gc = seg_cam(torch.einsum("eia,ei->ea", wJc, r))
-        gp = seg_pt(torch.einsum("eia,ei->ea", wJp, r))
-        tr_c = torch.diagonal(Hcc, dim1=-2, dim2=-1).sum(-1)
-        Hcc_d = Hcc + ((lam + 1e-5) * eye6)[None] * torch.clamp_min(tr_c / 6.0, 1.0)[:, None, None]
-        tr_p = torch.diagonal(Hpp, dim1=-2, dim2=-1).sum(-1)
-        Hpp_d = Hpp + ((lam + 1e-5) * eye3)[None] * torch.clamp_min(tr_p / 3.0, 1.0)[:, None, None]
-        observed = seg_pt(w) > 1e-9
-        Hpp_d = torch.where(observed[:, None, None], Hpp_d, eye3[None])
-        Hpp_inv = _inv3x3(Hpp_d)
-        Wcp = torch.einsum("eia,eib->eab", wJc, Jp)  # [E,6,3]
+        passes = [_edge_pass(Tn, pn, s, c2, False)
+                  for Tn, pn, s, c2 in zip(_to_shards(T_cw, shards), _to_shards(points, shards),
+                                           shards, chi2s)]
+        Wcps = [w for _, w in passes]
+        red = _reduce([pt for pt, _ in passes], dev)
+        Hcc_d, Hpp_inv, observed = _damped_blocks(red, lam)
+        gc, gp = red["gc"], red["gp"]
+        Hpp_invs = _to_shards(Hpp_inv, shards)
 
-        def schur_mv(x, Wcp=Wcp, Hpp_inv=Hpp_inv, Hcc_d=Hcc_d):
-            y = seg_pt(torch.einsum("eab,ea->eb", Wcp, x[oc]))
-            z = torch.einsum("pab,pb->pa", Hpp_inv, y)
-            back = seg_cam(torch.einsum("eab,eb->ea", Wcp, z[op]))
-            return torch.einsum("cab,cb->ca", Hcc_d, x) - back
+        def edge_pt(x, Wcps=Wcps):  # [C,6] -> sum over edges of W^T x, [P,3]
+            return _sum_to([_seg_add(Pn, op, torch.einsum("eab,ea->eb", Wcp, xs[oc]))
+                            for Wcp, xs, oc, op in zip(Wcps, _to_shards(x, shards), ocs, ops)],
+                           dev)
 
-        Sdiag = Hcc_d - seg_cam(torch.einsum("eab,ebd,ecd->eac", Wcp, Hpp_inv[op], Wcp))
+        def edge_cam(z, Wcps=Wcps):  # [P,3] -> sum over edges of W z, [C,6]
+            return _sum_to([_seg_add(C, oc, torch.einsum("eab,eb->ea", Wcp, zs[op]))
+                            for Wcp, zs, oc, op in zip(Wcps, _to_shards(z, shards), ocs, ops)],
+                           dev)
+
+        def schur_mv(x, Hpp_inv=Hpp_inv, Hcc_d=Hcc_d, edge_pt=edge_pt, edge_cam=edge_cam):
+            z = torch.einsum("pab,pb->pa", Hpp_inv, edge_pt(x))
+            return torch.einsum("cab,cb->ca", Hcc_d, x) - edge_cam(z)
+
+        # exact Schur diagonal blocks for the block-Jacobi preconditioner
+        Sdiag = Hcc_d - _sum_to([
+            _seg_add(C, oc, torch.einsum("eab,ebd,ecd->eac", Wcp, Hi[op], Wcp))
+            for Wcp, Hi, oc, op in zip(Wcps, Hpp_invs, ocs, ops)], dev)
         Sdiag = torch.where(lock[:, None, None], eye6[None], Sdiag)
         Minv = torch.linalg.inv_ex(Sdiag + 1e-6 * eye6[None])[0]
         zp = torch.einsum("pab,pb->pa", Hpp_inv, gp)
-        rhs = -(gc - seg_cam(torch.einsum("eab,eb->ea", Wcp, zp[op])))
+        rhs = -(gc - edge_cam(zp))
         rhs = torch.where(lock[:, None], torch.zeros_like(rhs), rhs)
 
         x = torch.zeros((C, 6), dtype=torch.float32, device=dev)
@@ -773,21 +957,18 @@ def _bundle_adjust_cg(p, iters, cg_iters, chi2_th, lam0):
             pvec = znew + beta * pvec
             rz = rz_new
         dc = torch.where(lock[:, None], torch.zeros_like(x), x)
-        wt = seg_pt(torch.einsum("eab,ea->eb", Wcp, dc[oc]))
-        dp = -torch.einsum("pab,pb->pa", Hpp_inv, gp + wt)
+        dp = -torch.einsum("pab,pb->pa", Hpp_inv, gp + edge_pt(dc))
         dp = dp * (p.point_valid & observed)[:, None]
 
         T_new = geo.se3_exp(dc) @ T_cw
         T_new = torch.where(lock[:, None, None], T_cw, T_new)
         pts_new = points + dp
-        c_old = _ba_cost_from_residual(r, pc, p, p.obs_valid, chi2_e)
-        c_new = _ba_cost(T_new, p.K, pts_new, p, p.obs_valid, chi2_e)
+        c_old = red["cost"]
+        c_new = _trial_cost(T_new, pts_new, shards, chi2s, dev)
         finite = torch.isfinite(c_new) & torch.isfinite(T_new).all() & torch.isfinite(pts_new).all()
         better = (c_new < c_old) & finite
         T_cw = torch.where(better, T_new, T_cw)
         points = torch.where(better, pts_new, points)
         lam = torch.where(better, torch.clamp_min(lam * 0.3, 1e-8), torch.clamp_max(lam * 5.0, 1e3))
-    r, pc, _, _ = _ba_residuals(T_cw, p.K, points, p)
-    chi2 = (r * r).sum(-1) / p.obs_sigma2
-    inlier = p.obs_valid & (chi2 <= chi2_e) & (pc[:, 2] > 1e-3)
-    return BAResult(T_cw=T_cw, points=points, obs_inlier=inlier, cost=c_new)
+    inliers, _ = _final_pass(T_cw, points, shards, chi2s, dev, with_cost=False)
+    return BAResult(T_cw=T_cw, points=points, obs_inlier=inliers, cost=c_new)

@@ -1,6 +1,5 @@
-"""Robot-parallel stream bank (port of orbslamm_tpu/parallel/streams.py,
-without the device mesh): R SLAM streams advanced together, one chunk per
-call.
+"""Robot-parallel stream bank (port of orbslamm_tpu/parallel/streams.py):
+R SLAM streams advanced together, one chunk per call.
 
 The reference runs one ``System`` (a set of threads) per robot inside one
 process, sharing one MultiMapper (mono_kitti_dif-Seq.cc:87-101). The JAX
@@ -9,10 +8,17 @@ vmaps one chunk program over it. Eager PyTorch gains nothing from a stack
 until every op takes a robot dimension, so here the bank keeps a list of
 per-robot ``MapState`` / ``TrackState`` / BoW databases, and its chunk step
 runs each robot's deferred-mapping chunk (``fused.chunk_deferred``) in index
-order on the one device. What the bank adds is the JAX package's:
+order. What the bank adds is the JAX package's:
 
+  * the robot axis over a device mesh (``mesh=``, ``multihost.stream_mesh``):
+    robot ``r`` of ``R`` lives on slot ``r * len(mesh) // R``, its map,
+    tracking state, BoW database and ``K`` on that slot's device, and its
+    chunk is dispatched there. The launches are asynchronous, so chunks on
+    separate cards overlap up to each segment's one host read. Robots need
+    no collectives; a merge, refresh or replay copies slices between the
+    slot devices and the trackers' device with ``.to``;
   * one fetch per chunk: every robot's summaries and keyframe events, and
-    the pending global-BA costs, in one device-to-host copy;
+    the pending global-BA costs, in one device-to-host copy per device;
   * the pipeline: chunk k+1 is dispatched before chunk k's events run;
     a same-map loop correction rebases the in-flight chunk's records and the
     robot's tracking state, a global-BA slice rewrites the robot's current
@@ -27,10 +33,8 @@ order on the one device. What the bank adds is the JAX package's:
     replayed into the authoritative map at sync points, every
     ``REPLAY_INTERVAL`` chunks (``_replay_kfs_device``).
 
-All streams share the image size and ORB configuration (one extractor);
-each robot keeps its own calibration ``K``. Sharding the robot axis over
-several devices (the JAX package's ``mesh``) raises ``NotImplementedError``
-naming its ROADMAP step.
+All streams share the image size and ORB configuration (one extractor per
+device); each robot keeps its own calibration ``K``.
 
 Every map, TrackState and BoW database written into a bank slice from a
 tracker or map context, or read back from one, is copied tensor by tensor:
@@ -38,6 +42,8 @@ a follower's copy and the authoritative map never share storage.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -47,36 +53,42 @@ from orbslamm_tpu_torch.models import local_mapping as lm_stage
 from orbslamm_tpu_torch.models import map_state as ms
 from orbslamm_tpu_torch.models.system import FrameRecord, TrackingState
 from orbslamm_tpu_torch.ops import bow as bow_ops
+from orbslamm_tpu_torch.ops import orb as orb_ops
 from orbslamm_tpu_torch.ops.orb import Features
 from orbslamm_tpu_torch.utils.config import SlamConfig
 from orbslamm_tpu_torch.utils.trace import stage
 
-_MESH = "sharding the bank's robot axis over devices (ROADMAP queue 1, step 14b)"
 # chunks between sync points while a follower has a backlog
 REPLAY_INTERVAL = 4
 
 
-def make_multistream_chunk_step(cfg: SlamConfig, extract_fn, *, with_bow: bool = False):
+def make_multistream_chunk_step(cfg: SlamConfig, extract_on, *, with_bow: bool = False):
     """The bank's chunk step: the deferred-mapping chunk for each robot, in
     index order.
 
-    Returns step(m[R], ts[R], kf_bow[R], K[R], images[R][C], frame_ids[R][C],
-    timestamps[R][C], allow_kf[R], voc) -> lists (m[R], ts[R], kf_bow[R],
-    summaries[R], kf_events[R]); each robot's summaries are stacked along
-    dim 0, and its events hold ``fused.KMAX`` entries per segment. With
-    ``with_bow`` each inserted keyframe's BoW row and loop scan run inside
-    the chunk (one vocabulary for every robot); without it ``kf_bow`` passes
-    through untouched."""
+    ``extract_on(device)`` is the extractor on ``device``: robot ``r``'s
+    images are extracted on its device, the device of its ``K`` (the bank
+    passes a subset of its robots when some are on the per-frame path, so
+    nothing is indexed by robot). Returns step(m[R], ts[R], kf_bow[R], K[R],
+    images[R][C], frame_ids[R][C], timestamps[R][C], allow_kf[R], vocs[R])
+    -> lists (m[R], ts[R], kf_bow[R], summaries[R], kf_events[R]); each
+    robot's summaries are stacked along dim 0, and its events hold
+    ``fused.KMAX`` entries per segment. With ``with_bow`` each inserted
+    keyframe's BoW row and loop scan run inside the chunk against
+    ``vocs[r]``, robot ``r``'s copy of the one shared vocabulary; without it
+    ``kf_bow`` passes through untouched and ``vocs`` is not read."""
 
     def step(m_all, ts_all, bow_all, K_all, images, frame_ids, timestamps, allow_kf,
-             voc=None):
+             vocs=None):
         out = ([], [], [], [], [])
         for r in range(len(m_all)):
-            with stage("orb.extract"):
-                feats = [extract_fn(img) for img in images[r]]
-            res = fused.chunk_deferred(
-                cfg, m_all[r], ts_all[r], bow_all[r], voc if with_bow else None, feats,
-                frame_ids[r], timestamps[r], K_all[r], allow_kf[r])
+            with _on(K_all[r].device):
+                with stage("orb.extract"):
+                    ext = extract_on(K_all[r].device)
+                    feats = [ext(img) for img in images[r]]
+                res = fused.chunk_deferred(
+                    cfg, m_all[r], ts_all[r], bow_all[r], vocs[r] if with_bow else None, feats,
+                    frame_ids[r], timestamps[r], K_all[r], allow_kf[r])
             for acc, x in zip(out, res):
                 acc.append(x)
         return out
@@ -84,14 +96,49 @@ def make_multistream_chunk_step(cfg: SlamConfig, extract_fn, *, with_bow: bool =
     return step
 
 
-def _copy(tree):
+def shard_streams(n_robots: int, mesh, device) -> list[torch.device]:
+    """The device of each of ``n_robots`` robots: robot ``r`` on slot
+    ``r * len(mesh) // n_robots`` of ``mesh`` (contiguous blocks of robots
+    per slot, as the JAX package shards the robot axis), or every robot on
+    ``device`` without a mesh."""
+    if mesh is None:
+        return [_indexed(device)] * n_robots
+    devs = mesh.flat
+    return [devs[r * len(devs) // n_robots] for r in range(n_robots)]
+
+
+def _indexed(device) -> torch.device:
+    """``device`` with its index (``cuda`` is the current card's), so that
+    one device has one key."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _on(device):
+    """The current CUDA device set to ``device`` for the launches inside
+    (nothing to set on the CPU)."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+def _copy(tree, device=None):
     """A copy of a tensor, or of a (nested) NamedTuple of tensors, that
-    shares no storage with it."""
+    shares no storage with it, on ``device`` (default: where it lies)."""
     if tree is None:
         return None
     if torch.is_tensor(tree):
-        return tree.clone()
-    return type(tree)(*(_copy(x) for x in tree))
+        return tree.clone() if device is None else tree.to(device, copy=True)
+    return type(tree)(*(_copy(x, device) for x in tree))
+
+
+def _move(tree, device):
+    """``tree`` on ``device``; tensors already there are not copied."""
+    if tree is None:
+        return None
+    if torch.is_tensor(tree):
+        return tree.to(device)
+    return type(tree)(*(_move(x, device) for x in tree))
 
 
 _NUMPY_DTYPE = {torch.float32: np.float32, torch.int32: np.int32, torch.bool: np.bool_}
@@ -99,9 +146,10 @@ _NUMPY_DTYPE = {torch.float32: np.float32, torch.int32: np.int32, torch.bool: np
 
 def _fetch(tree):
     """Every tensor of ``tree`` (nested lists, tuples and NamedTuples) to
-    the host in one copy. The tensors travel as one float64 buffer, which
-    holds their int32, bool and float32 values exactly, and come back as
-    numpy arrays of their own dtypes in the same structure."""
+    the host in one copy per device. Each device's tensors travel as one
+    float64 buffer, which holds their int32, bool and float32 values
+    exactly, and come back as numpy arrays of their own dtypes in the same
+    structure."""
     leaves = []
 
     def walk(x):
@@ -114,15 +162,20 @@ def _fetch(tree):
     walk(tree)
     if not leaves:
         return tree
-    flat = torch.cat([x.reshape(-1).to(torch.float64) for x in leaves]).cpu().numpy()
-    offsets = np.cumsum([0] + [x.numel() for x in leaves])
+    by_dev: dict = {}  # device -> indices of its leaves
+    for i, x in enumerate(leaves):
+        by_dev.setdefault(x.device, []).append(i)
+    host = [None] * len(leaves)
+    for idx in by_dev.values():
+        flat = torch.cat([leaves[i].reshape(-1).to(torch.float64) for i in idx]).cpu().numpy()
+        offsets = np.cumsum([0] + [leaves[i].numel() for i in idx])
+        for k, i in enumerate(idx):
+            host[i] = flat[offsets[k]:offsets[k + 1]]
     it = iter(range(len(leaves)))
 
     def build(x):
         if torch.is_tensor(x):
-            i = next(it)
-            return flat[offsets[i]:offsets[i + 1]].reshape(tuple(x.shape)).astype(
-                _NUMPY_DTYPE[x.dtype])
+            return host[next(it)].reshape(tuple(x.shape)).astype(_NUMPY_DTYPE[x.dtype])
         if isinstance(x, tuple) and hasattr(x, "_fields"):
             return type(x)(*(build(y) for y in x))
         if isinstance(x, (list, tuple)):
@@ -176,9 +229,11 @@ class StreamBank:
 
     Bootstrap each robot on the per-frame path until it is OK (two-view
     initialization is a rare host-decided event), then
-    ``bank = StreamBank(cfg, trackers, device=...)`` and call
+    ``bank = StreamBank(cfg, trackers, device=..., mesh=...)`` and call
     ``bank.process_chunk(images[R, C], stamps[R, C])`` for each chunk of
-    ``chunk_size`` frames;
+    ``chunk_size`` frames. The trackers live on ``device``; with a ``mesh``
+    (``multihost.stream_mesh``) robot ``r`` of ``R`` runs on slot
+    ``r * len(mesh) // R`` (``shard_streams``), without one on ``device``;
     ``bank.sync_to_trackers()`` writes the device state back into the
     trackers for trajectory export and merging.
 
@@ -205,8 +260,6 @@ class StreamBank:
     and ``bank_replay_skipped_capacity``."""
 
     def __init__(self, cfg: SlamConfig, trackers, *, device, mesh=None, chunk_size: int = 8):
-        if mesh is not None:
-            raise NotImplementedError(f"{_MESH} is not ported to orbslamm_tpu_torch yet")
         self.cfg = cfg
         self.device = torch.device(device)
         self.trackers = list(trackers)
@@ -216,7 +269,12 @@ class StreamBank:
         for t in self.trackers:
             if t.device != self.device:
                 raise ValueError(f"tracker {t.name} lives on {t.device}, the bank on {self.device}")
-        self._extract = self.trackers[0].extract
+        self.mesh = mesh
+        self._devs = shard_streams(len(self.trackers), mesh, self.device)
+        # one extractor per device, and per device the shared vocabulary's
+        # copy there: device -> (vocabulary, its copy)
+        self._extractors = {_indexed(self.device): self.trackers[0].extract}
+        self._vocs: dict = {}
         # the step is built on first use and rebuilt once when the shared
         # vocabulary appears (the with_bow step maps BoW rows and loop scans
         # inside the chunk)
@@ -227,9 +285,9 @@ class StreamBank:
         for t in self.trackers:
             if t._ts is None:
                 t._ts = t._make_ts()
-        self.m_all = [_copy(t.mapctx.map) for t in self.trackers]
-        self.ts_all = [_copy(t._ts) for t in self.trackers]
-        self.K_all = [t.K for t in self.trackers]
+        self.m_all = [_copy(t.mapctx.map, d) for t, d in zip(self.trackers, self._devs)]
+        self.ts_all = [_copy(t._ts, d) for t, d in zip(self.trackers, self._devs)]
+        self.K_all = [t.K.to(d) for t, d in zip(self.trackers, self._devs)]
         # a tracker's map context goes stale while the bank runs its robot;
         # dirty robots are synced before keyframe events read other maps
         self._dirty = [False] * len(self.trackers)
@@ -277,11 +335,24 @@ class StreamBank:
     def _event(self, name: str, **fields):
         self.events.append((name, fields))
 
-    def _tensor(self, a) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+    def _tensor(self, a, device=None) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, np.float32), device=device or self.device)
 
-    def _i32(self, v: int) -> torch.Tensor:
-        return torch.tensor(v, dtype=torch.int32, device=self.device)
+    def _i32(self, v: int, device=None) -> torch.Tensor:
+        return torch.tensor(v, dtype=torch.int32, device=device or self.device)
+
+    def _extract_on(self, device):
+        if device not in self._extractors:
+            self._extractors[device] = orb_ops.make_extractor(self.cfg.orb, self.cfg.camera,
+                                                              device=device)
+        return self._extractors[device]
+
+    def _voc_on(self, voc, device):
+        held = self._vocs.get(device)
+        if held is None or held[0] is not voc:
+            held = (voc, voc if voc.nodes.device == device else voc.to(device))
+            self._vocs[device] = held
+        return held[1]
 
     def process_chunk(self, images, timestamps):
         """Advance every stream by one chunk, always pipelined.
@@ -341,11 +412,11 @@ class StreamBank:
             # databases are taken from the trackers
             if self._pending is not None:
                 self.flush()
-            self._step = make_multistream_chunk_step(self.cfg, self._extract,
+            self._step = make_multistream_chunk_step(self.cfg, self._extract_on,
                                                      with_bow=want_bow)
             self._step_bow = want_bow
-            self.bow_all = ([t.mapctx.kf_bow.clone() for t in self.trackers]
-                            if want_bow else None)
+            self.bow_all = ([t.mapctx.kf_bow.to(d, copy=True)
+                             for t, d in zip(self.trackers, self._devs)] if want_bow else None)
         fid0s = []
         for r, t in enumerate(self.trackers):
             fid0s.append(t.frame_id + 1)
@@ -354,6 +425,7 @@ class StreamBank:
         stamps = np.asarray(timestamps, np.float32)
         run = [r for r in range(R) if r not in host_handled]
         voc = self.trackers[0].mapctx.voc if want_bow else None
+        vocs = [self._voc_on(voc, d) for d in self._devs] if want_bow else [None] * R
         bows = self.bow_all if want_bow else [None] * R
         with stage("bank.chunk"):
             m2, ts2, bow2, summ, evs = self._step(
@@ -362,7 +434,7 @@ class StreamBank:
                 [images[r] for r in run],
                 [list(range(fid0s[r], fid0s[r] + C)) for r in run],
                 [[float(x) for x in stamps[r]] for r in run],
-                [not self.trackers[r].localization_only for r in run], voc)
+                [not self.trackers[r].localization_only for r in run], [vocs[r] for r in run])
         summaries, kf_events = [None] * R, [None] * R
         for i, r in enumerate(run):
             self.m_all[r], self.ts_all[r] = m2[i], ts2[i]
@@ -575,7 +647,7 @@ class StreamBank:
                 with stage("bank.gba_slice"):
                     self._sync_tracker(r)
                     if mc.gba_slice():
-                        self.m_all[r] = _copy(mc.map)
+                        self.m_all[r] = _copy(mc.map, self._devs[r])
         # loss hooks last, with all state consistent (a hook may switch maps)
         if self.on_lost is not None:
             for r in newly_lost:
@@ -603,20 +675,23 @@ class StreamBank:
             self._shared_rebase.setdefault(r, []).extend(
                 [(np.asarray(a), np.asarray(b)) for a, b in corrections])
             self._want_sync = True
+        dev = self._devs[r]
         ts_r = self.ts_all[r]
         A = np.eye(4)
         for T_old, T_new in corrections:
-            ts_r = fused.rebase_track_state(ts_r, self._tensor(T_old), self._tensor(T_new))
+            ts_r = fused.rebase_track_state(ts_r, self._tensor(T_old, dev),
+                                            self._tensor(T_new, dev))
             A = A @ np.linalg.inv(T_old) @ T_new
         # the correction fused landmarks (the carried indicator is stale) and
         # a transplant may have raised n_kf
         n_kf_new = max(mc.n_kf, int(ts_r.n_kf))
-        ts_r = ts_r._replace(obs_ind=ms.lm_indicator(mc.map), n_kf=self._i32(n_kf_new),
-                             last_kf_T=mc.map.kf_pose[n_kf_new - 1].clone())
+        ts_r = ts_r._replace(obs_ind=ms.lm_indicator(mc.map).to(dev),
+                             n_kf=self._i32(n_kf_new, dev),
+                             last_kf_T=mc.map.kf_pose[n_kf_new - 1].to(dev, copy=True))
         self.ts_all[r] = ts_r
-        self.m_all[r] = _copy(mc.map)
+        self.m_all[r] = _copy(mc.map, dev)
         if refresh_bow and self.bow_all is not None and mc.kf_bow is not None:
-            self.bow_all[r] = mc.kf_bow.clone()
+            self.bow_all[r] = mc.kf_bow.to(dev, copy=True)
         t.T_cw = self._tensor(t.T_cw.cpu().numpy() @ A)
         t.last_T = t.T_cw
         if self._pending is not None:
@@ -643,7 +718,8 @@ class StreamBank:
         if o in self._shared_lm_valid:
             self._shared_lm_valid[new_o] = self._shared_lm_valid.pop(o)
         mc = self.trackers[o].mapctx
-        self.m_all[new_o] = _copy(mc.map)
+        dev = self._devs[new_o]
+        self.m_all[new_o] = _copy(mc.map, dev)
         # its TrackState against the adopted map: the copy's slot frontier,
         # indicator and associations are invalid there
         ts_n = self.ts_all[new_o]
@@ -651,12 +727,12 @@ class StreamBank:
         last_lm = ts_n.last_lm
         if base_valid is not None:
             safe = torch.clamp_min(last_lm, 0)
-            keep = (last_lm >= 0) & base_valid[safe] & mc.map.lm_valid[safe]
+            keep = (last_lm >= 0) & base_valid.to(dev)[safe] & mc.map.lm_valid.to(dev)[safe]
             last_lm = torch.where(keep, last_lm, torch.full_like(last_lm, -1))
         ts_n = ts_n._replace(
-            n_kf=self._i32(mc.n_kf), obs_ind=ms.lm_indicator(mc.map), last_lm=last_lm,
-            prev_inliers=torch.zeros_like(ts_n.prev_inliers),
-            last_kf_T=mc.map.kf_pose[max(mc.n_kf - 1, 0)].clone())
+            n_kf=self._i32(mc.n_kf, dev), obs_ind=ms.lm_indicator(mc.map).to(dev),
+            last_lm=last_lm, prev_inliers=torch.zeros_like(ts_n.prev_inliers),
+            last_kf_T=mc.map.kf_pose[max(mc.n_kf - 1, 0)].to(dev, copy=True))
         self.ts_all[new_o] = ts_n
         self._gens[new_o] += 1
         self._event("bank_owner_promoted", old_owner=o, new_owner=new_o, map_id=mc.map_id)
@@ -676,8 +752,8 @@ class StreamBank:
         if t._ts is None:
             t._ts = t._make_ts()
         if owner is None:
-            self.m_all[r] = _copy(t.mapctx.map)
-            self.ts_all[r] = _copy(t._ts)
+            self.m_all[r] = _copy(t.mapctx.map, self._devs[r])
+            self.ts_all[r] = _copy(t._ts, self._devs[r])
             self._gens[r] += 1
             return
         self.followers[r] = owner
@@ -711,7 +787,7 @@ class StreamBank:
                     self._event("bank_backlog_dropped", follower=r, owner=o)
                 self._pending_ref.pop(r, None)
             if r not in fresh:
-                t._ts = self.ts_all[r]
+                t._ts = _move(self.ts_all[r], self.device)
                 if rebase and r not in rebase_skip:
                     for T_old, T_new in rebase:
                         t._ts = fused.rebase_track_state(t._ts, self._tensor(T_old),
@@ -738,10 +814,10 @@ class StreamBank:
             self._gens[r] += 1
         # every member's slice gets its own copy of the shared map
         for r in members:
-            self.m_all[r] = _copy(mc.map)
-            self.ts_all[r] = _copy(self.trackers[r]._ts)
+            self.m_all[r] = _copy(mc.map, self._devs[r])
+            self.ts_all[r] = _copy(self.trackers[r]._ts, self._devs[r])
             if self.bow_all is not None and mc.kf_bow is not None:
-                self.bow_all[r] = mc.kf_bow.clone()
+                self.bow_all[r] = mc.kf_bow.to(self._devs[r], copy=True)
         # the authoritative pool's occupancy for the next reconciliation's
         # association filter, and the slot mark below which follower copy
         # slots are never replayed
@@ -762,7 +838,7 @@ class StreamBank:
             self._event("bank_replay_skipped_capacity", follower=r, slot=int(s_), n_kf=mc.n_kf)
         remap: dict[int, int] = {}  # copy slot -> authoritative slot
         if n_allowed > 0:
-            mB = self.m_all[r]  # the follower's evolved copy
+            mB = _move(self.m_all[r], self.device)  # the follower's evolved copy
             base_valid = self._shared_lm_valid.get(o)
             if base_valid is None:
                 base_valid = mc.map.lm_valid
@@ -829,10 +905,10 @@ class StreamBank:
         self._shared_rebase.pop(r, None)
         if t._ts is None:
             t._ts = t._make_ts()
-        self.m_all[r] = _copy(t.mapctx.map)
-        self.ts_all[r] = _copy(t._ts)
+        self.m_all[r] = _copy(t.mapctx.map, self._devs[r])
+        self.ts_all[r] = _copy(t._ts, self._devs[r])
         if self.bow_all is not None and t.mapctx.kf_bow is not None:
-            self.bow_all[r] = t.mapctx.kf_bow.clone()
+            self.bow_all[r] = t.mapctx.kf_bow.to(self._devs[r], copy=True)
         self._dirty[r] = False
         self._gens[r] += 1
 
@@ -842,10 +918,10 @@ class StreamBank:
         map (the owner's slice): only its tracking state is synced."""
         t = self.trackers[r]
         if r not in self.followers:
-            t.mapctx.map = _copy(self.m_all[r])
+            t.mapctx.map = _copy(self.m_all[r], self.device)
             if self.bow_all is not None:
-                t.mapctx.kf_bow = self.bow_all[r].clone()
-        t._ts = _copy(self.ts_all[r])
+                t.mapctx.kf_bow = self.bow_all[r].to(self.device, copy=True)
+        t._ts = _copy(self.ts_all[r], self.device)
         self._dirty[r] = False
 
     def sync_to_trackers(self):

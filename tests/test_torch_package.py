@@ -2,9 +2,8 @@
 JAX package, its copies of the JAX package's numpy-only modules (config,
 synthetic sequences, ATE) and generators are exact, its converters carry a
 map across both ways, the CPU matcher never launches the CUDA kernel, the
-paths of earlier steps that once were refused now run, and the path the
-port does not have yet (the bank's device mesh) is refused rather than
-skipped."""
+paths of earlier steps that once were refused now run (the bank's device
+mesh among them)."""
 
 import ast
 import dataclasses
@@ -74,7 +73,8 @@ def test_port_never_imports_jax():
                                                multimap, system, tracking)
         from orbslamm_tpu_torch.ops import ba, bow, geometry, matching, orb, ransac
         from orbslamm_tpu_torch.ops.cuda import hamming
-        from orbslamm_tpu_torch.parallel import streams
+        from orbslamm_tpu_torch.parallel import (dist_ba, multihost, multihost_demo,
+                                                 multihost_mapper, streams)
         from orbslamm_tpu_torch.utils import trace
         from orbslamm_tpu_torch.io.synthetic import make_sequence
         from orbslamm_tpu_torch.eval import ate
@@ -393,11 +393,12 @@ def test_paths_the_slice_lacks_are_refused():
             kind(CFG, device="cpu")
         rig = dataclasses.replace(CFG, camera=dataclasses.replace(CAM, bf=40.0))
         assert kind(rig, device="cpu").tracker.cfg.sensor == sensor
-    # the robot-parallel bank runs on one device; sharding its robot axis
-    # over a device mesh is step 14b
+    # the robot-parallel bank, on one device or with its robot axis over a
+    # device mesh (step 14b)
+    from orbslamm_tpu_torch.parallel.multihost import stream_mesh
     from orbslamm_tpu_torch.parallel.streams import StreamBank
-    with pytest.raises(NotImplementedError, match="step 14b"):
-        StreamBank(CFG, [sess.tracker], device="cpu", mesh=object())
+    assert StreamBank(CFG, [sess.tracker], device="cpu",
+                      mesh=stream_mesh(["cpu"])).n_streams == 1
     assert StreamBank(CFG, [sess.tracker], device="cpu").n_streams == 1
     # the multi-map entry points: a MultiMapper, the cross-map scan and
     # Sim3 between the session's map and itself, and the adoption of a

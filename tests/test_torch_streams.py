@@ -46,8 +46,9 @@ from orbslamm_tpu.utils.config import (
 from orbslamm_tpu_torch import convert
 from orbslamm_tpu_torch.io import synthetic as tsynthetic
 from orbslamm_tpu_torch.models import map_state as tms
-from orbslamm_tpu_torch.models.system import MapContext, RobotTracker
+from orbslamm_tpu_torch.models.system import MapContext, RobotTracker, TrackingState
 from orbslamm_tpu_torch.ops import bow as tbow
+from orbslamm_tpu_torch.parallel import multihost as mh
 from orbslamm_tpu_torch.parallel import streams as tstreams
 
 torch.set_num_threads(2)
@@ -102,10 +103,16 @@ def boot():
 
 
 def _feeder(feats):
-    """The port's extractor stand-in: the JAX extractor's features of the
-    chunk's frames, in order."""
+    """The port's extractor stand-in for the chunk step's ``extract_on``:
+    on the CPU, the JAX extractor's features of the chunk's frames, in
+    order."""
     it = iter(feats)
-    return lambda image: convert.features_from_numpy(next(it), device="cpu")
+
+    def extract_on(device):
+        assert device == torch.device("cpu")
+        return lambda image: convert.features_from_numpy(next(it), device="cpu")
+
+    return extract_on
 
 
 def _run_both(boot, cfg, with_bow, C=CHUNK):
@@ -142,7 +149,7 @@ def _run_both(boot, cfg, with_bow, C=CHUNK):
                   [convert.kf_bow_from_numpy(boot["kf_bow"], device="cpu") if with_bow else None],
                   [torch.as_tensor(boot["K"])], [list(boot["seq"].images[i:i + C])],
                   [fids.tolist()], [stamps.tolist()], [True],
-                  boot["voc_t"] if with_bow else None)
+                  [boot["voc_t"]] if with_bow else None)
     m_t, ts_t, _, s_t, ev_t = (x[0] for x in out_t)
     return (m_j, ts_j, s_j, ev_j), (m_t, ts_t, s_t, ev_t)
 
@@ -343,3 +350,113 @@ def test_bank_refuses_a_chunk_of_another_size(boot):
     with pytest.raises(ValueError, match="chunk_size 8"):
         bank.process_chunk(images, np.asarray(boot["seq"].timestamps[i:i + 4])[None])
     assert bank._pending is None and t.frame_id == fid and not t.frames
+
+
+def _bank_of_two(boot, mesh, chunk_size):
+    """Two robots on copies of the bootstrapped map and TrackState, OK and
+    ready to stream the frames after the bootstrap, in one bank."""
+    trackers = []
+    for name in ("r0", "r1"):
+        mc = MapContext(CFG, device="cpu")
+        mc.map = convert.map_state_from_numpy(boot["map"], device="cpu")
+        mc.n_kf = int(boot["ts"].n_kf)
+        t = RobotTracker(CFG, mc, name, device="cpu")
+        t._ts = convert.track_state_from_numpy(boot["ts"], device="cpu")
+        t.T_cw = t._ts.T_cw
+        t.state = TrackingState.OK
+        t.frame_id = boot["i"] - 1
+        trackers.append(t)
+    return tstreams.StreamBank(CFG, trackers, device="cpu", mesh=mesh, chunk_size=chunk_size)
+
+
+def test_meshed_bank_records_equal_the_unmeshed(boot):
+    """The bank with its robot axis over a two-slot mesh (two CPU slots, the
+    stand-in for two cards) and the bank without a mesh stream the same two
+    4-frame chunks (one segment each) to two robots (r1 one frame behind
+    r0): every record, the final maps and the tracking states are equal,
+    exactly."""
+    i = boot["i"]
+    seq = boot["seq"]
+    C = 4
+    out = []
+    for mesh in (None, mh.stream_mesh(["cpu", "cpu"])):
+        bank = _bank_of_two(boot, mesh, C)
+        assert bank._devs == [torch.device("cpu")] * 2
+        recs = [[], []]
+        for c in range(2):
+            lo = i + c * C
+            images = np.stack([seq.images[lo + k:lo + k + C] for k in (0, 1)])
+            stamps = np.stack([seq.timestamps[lo + k:lo + k + C] for k in (0, 1)])
+            for r, rr in enumerate(bank.process_chunk(images, stamps)):
+                recs[r] += rr
+        for r, rr in enumerate(bank.flush()):
+            recs[r] += rr
+        bank.sync_to_trackers()
+        out.append((recs, [t.mapctx.map for t in bank.trackers],
+                    [(t.T_cw, t.last_lm) for t in bank.trackers]))
+    (recs_a, maps_a, trk_a), (recs_b, maps_b, trk_b) = out
+    for ra, rb in zip(recs_a, recs_b):
+        assert len(ra) == len(rb) == 2 * C
+        assert sum(f.state == "OK" for f in ra) >= C
+        for fa, fb in zip(ra, rb):
+            assert (fa.frame_id, fa.timestamp, fa.state, fa.n_inliers, fa.ref_slot) == \
+                (fb.frame_id, fb.timestamp, fb.state, fb.n_inliers, fb.ref_slot)
+            assert np.array_equal(fa.T_cw, fb.T_cw)
+            assert (fa.T_rel is None) == (fb.T_rel is None)
+            if fa.T_rel is not None:
+                assert np.array_equal(fa.T_rel, fb.T_rel)
+    for ma, mb in zip(maps_a, maps_b):
+        for name, a, b in zip(tms.MapState._fields, ma, mb):
+            assert torch.equal(a, b), name
+    for (Ta, la), (Tb, lb) in zip(trk_a, trk_b):
+        assert torch.equal(Ta, Tb) and torch.equal(la, lb)
+
+
+@pytest.mark.parametrize("n_robots,n_slots,want", [
+    (2, 1, [0, 0]), (2, 2, [0, 1]), (4, 2, [0, 0, 1, 1]), (3, 2, [0, 0, 1]), (2, 4, [0, 2]),
+    (8, 8, list(range(8))),
+])
+def test_shard_streams_slot_assignment(n_robots, n_slots, want):
+    """Robot r of R on slot r * len(mesh) // R: contiguous blocks of robots
+    per slot, as the JAX package shards the robot axis; without a mesh every
+    robot on the bank's device."""
+    mesh = mh.Mesh(np.array([f"cpu:{k}" for k in range(n_slots)], dtype=object), ("d",))
+    got = tstreams.shard_streams(n_robots, mesh, "cpu")
+    assert [d.index for d in got] == want
+    assert tstreams.shard_streams(n_robots, None, "cpu") == [torch.device("cpu")] * n_robots
+
+
+@pytest.mark.cuda
+def test_meshed_bank_places_each_robot_on_its_slot(boot):
+    """On the card, a bank over stream_mesh() keeps each robot's map,
+    TrackState and K on its slot's device and the trackers' state on the
+    bank's device after a sync."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    trackers = []
+    for name in ("r0", "r1"):
+        mc = MapContext(CFG, device="cuda")
+        mc.map = convert.map_state_from_numpy(boot["map"], device="cuda")
+        mc.n_kf = int(boot["ts"].n_kf)
+        t = RobotTracker(CFG, mc, name, device="cuda")
+        t._ts = convert.track_state_from_numpy(boot["ts"], device="cuda")
+        t.T_cw = t._ts.T_cw
+        t.state = TrackingState.OK
+        t.frame_id = boot["i"] - 1
+        trackers.append(t)
+    mesh = mh.stream_mesh()
+    bank = tstreams.StreamBank(CFG, trackers, device="cuda", mesh=mesh)
+    for r in range(2):
+        dev = mesh.flat[r * len(mesh) // 2]
+        assert bank.K_all[r].device == dev
+        assert all(x.device == dev for x in bank.m_all[r])
+        assert bank.ts_all[r].T_cw.device == dev
+    i = boot["i"]
+    seq = boot["seq"]
+    images = np.stack([seq.images[i:i + CHUNK]] * 2)
+    stamps = np.stack([seq.timestamps[i:i + CHUNK]] * 2)
+    bank.process_chunk(images, stamps)
+    bank.sync_to_trackers()
+    for t in bank.trackers:
+        assert all(x.device.type == "cuda" for x in t.mapctx.map)
+        assert t.T_cw.device == torch.device("cuda", torch.cuda.current_device())

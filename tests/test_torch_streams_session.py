@@ -77,8 +77,8 @@ def _robots(mm, seq, names):
     return start
 
 
-def _bank(mm):
-    bank = StreamBank(CFG, mm.robots, device="cpu", chunk_size=CHUNK)
+def _bank(mm, mesh=None):
+    bank = StreamBank(CFG, mm.robots, device="cpu", mesh=mesh, chunk_size=CHUNK)
     bank.on_lost = lambda t: mm._handle_loss(t, 0.0)
     bank.on_chunk_end = mm.pump_merge_scans
     return bank
@@ -96,14 +96,14 @@ def _copy_map(m):
     return type(m)(*(x.clone() for x in m))
 
 
-@pytest.fixture(scope="module")
-def merge_run():
-    """Both robots through one bank to the end of the halves; robot 0's
-    records and slice after its first two chunks are kept."""
+def _merge_run(mesh=None, each_chunk=None):
+    """Both robots through one bank (over ``mesh``) to the end of the
+    halves; robot 0's records and slice after its first two chunks are
+    kept. ``each_chunk(bank)`` runs after every chunk."""
     seq = make_sequence(n_frames=N_TOTAL, n_points=2500, cam=CAM, seed=21, motion="strafe")
     mm = MultiMapper(CFG, device="cpu")
     start = _robots(mm, seq, ("r0", "r1"))
-    bank = _bank(mm)
+    bank = _bank(mm, mesh)
     i, c, early = start, 0, None
     while i + CHUNK <= HALF:
         bank.process_chunk(*_chunk(seq, 2, i))
@@ -111,17 +111,24 @@ def merge_run():
         if c == 2:
             early = (_copy_map(bank.m_all[0]), bank.flush()[0],
                      copy.deepcopy(mm.robots[0].frames))
+        if each_chunk is not None:
+            each_chunk(bank)
     bank.sync_to_trackers()
     mm.flush_merge_scans()  # drain the deferred scan pipeline
     return dict(seq=seq, mm=mm, bank=bank, start=start, early=early)
 
 
-def test_bank_merges_robots_into_owner_and_follower(merge_run):
+@pytest.fixture(scope="module")
+def merge_run():
+    return _merge_run()
+
+
+def _assert_merged(run):
     """tests/test_streams.py's assertions: a merge, an owner/follower pair,
     follower keyframes replayed into the shared map, both robots OK for the
     bulk of the run, and each robot's frames on the merged map within 0.6 m
     ATE."""
-    mm, bank, seq = merge_run["mm"], merge_run["bank"], merge_run["seq"]
+    mm, bank, seq = run["mm"], run["bank"], run["seq"]
     assert mm.merges, "no cross-map merge happened in the bank"
     assert bank.count("bank_follower") >= 1, bank.events
     assert bank.count("bank_replay_kf") >= 1 and bank.sync_points >= 1, bank.events
@@ -139,6 +146,60 @@ def test_bank_merges_robots_into_owner_and_follower(merge_run):
     # every replayed keyframe landed in a fresh slot of the shared map
     dst = [f["dst_slot"] for n, f in bank.events if n == "bank_replay_kf"]
     assert len(set(dst)) == len(dst)
+
+
+def test_bank_merges_robots_into_owner_and_follower(merge_run):
+    """The merge inside the bank passes tests/test_streams.py's
+    assertions (``_assert_merged``)."""
+    _assert_merged(merge_run)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots,replays", [("cpu,cuda:0", True), ("cuda:0,cpu", False)],
+                         ids=["follower_on_card", "owner_on_card"])
+def test_bank_over_the_card_and_the_cpu_keeps_each_slice_on_its_slot(slots, replays):
+    """The merge scenario with the trackers on the CPU and the bank's mesh
+    over the card and the CPU, in both orders. After every chunk each
+    robot's slice (map, TrackState with its last features, K, BoW rows)
+    lies on its slot's device, through the merge, the follower's refresh
+    and replay (or the owner's loss, promotion and re-adoption) and
+    ``sync_to_trackers``; after the run the trackers' maps, TrackStates and
+    BoW rows lie on the CPU, every robot holds one record per frame with a
+    finite pose, and a merge paired the robots. With the follower on the
+    card the run also passes the merge test's assertions. With robot 0 on
+    the card its chunk loses tracking at frame 50, before the merge lands
+    and also with both robots on the card (PERF.md, PR 8), so that order is
+    held to the rest."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from orbslamm_tpu_torch.parallel.multihost import stream_mesh
+
+    devs = [torch.device(d) for d in slots.split(",")]
+
+    def on(tree, dev):
+        return all(x.device == dev for x in tree if torch.is_tensor(x))
+
+    def placed(bank):
+        assert bank._devs == devs
+        for r, dev in enumerate(devs):
+            ts = bank.ts_all[r]
+            assert on(bank.m_all[r], dev) and on(ts, dev) and on(ts.last_feats, dev), r
+            assert bank.K_all[r].device == dev
+            assert bank.bow_all is None or bank.bow_all[r].device == dev
+
+    run = _merge_run(stream_mesh(devs), each_chunk=placed)
+    placed(run["bank"])
+    mm, bank = run["mm"], run["bank"]
+    assert mm.merges and bank.count("bank_follower") >= 1, bank.events
+    cpu = torch.device("cpu")
+    for t in mm.robots:
+        assert on(t.mapctx.map, cpu), t.name
+        if t._ts is not None:  # None on a robot that ends uninitialized
+            assert on(t._ts, cpu) and on(t._ts.last_feats, cpu), t.name
+        assert t.mapctx.kf_bow is None or t.mapctx.kf_bow.device == cpu
+        assert len(t.frames) == HALF and all(np.isfinite(f.T_cw).all() for f in t.frames)
+    if replays:
+        _assert_merged(run)
 
 
 @pytest.fixture(scope="module")
