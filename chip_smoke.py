@@ -5,7 +5,10 @@
 Phases, each ending in ``torch.cuda.synchronize()``; any failure exits
 non-zero and no phase failure is caught:
 
-1. the card (``nvidia-smi`` name and power limit) and the software versions;
+1. the card (``nvidia-smi`` name and power limit), the software versions,
+   and a ``packages`` line: whether ``cv2``, ``PIL`` and ``matplotlib``
+   import, and whether ``g++`` and zlib's header (the native frame
+   loader's build) are found;
 2. building the hand-written matcher kernel (csrc/hamming.cu) with nvcc;
 3. the kernel against its plain torch version on the card: window mode at
    the main path's shapes 2048x2048 (motion model), 2048x4096 (local map)
@@ -27,6 +30,25 @@ non-zero and no phase failure is caught:
    8; asserts initialization, >= 90% tracked frames,
    >= 3 keyframes, >= 2 kernel launches per tracked frame and a finite ATE
    below 0.5 m (a catastrophe guard);
+4b. the driver path, from files on disk: the main path's sequence, frames
+   0 to its init frame + DRIVER_AFTER_INIT (at most 248), written as a TUM
+   RGB-D directory (``rgb/<stamp>.png`` from the smoke's own stdlib PNG
+   writer, ``rgb.txt``, ``groundtruth.txt`` through the port's
+   ``save_tum``), read with ``load_tum_sequence``, decoded by the native
+   frame loader (``ImageSequence.prefetched``) and run through
+   ``driver.run_robots(cfg, [RobotFeed(.., "robot0")], out_dir=..,
+   device="cuda")`` at the main path's configuration and under its
+   session's name (the name seeds the tracker's generator); asserts the
+   native loader decoded every frame, an init within those frames, >= 90%
+   of the frames after it tracked, a Sim3 ATE of ``robot0_frames_tum.txt``
+   against ``groundtruth.txt`` below 0.5 m, ``load_tum`` and
+   ``load_kitti`` giving the run's resolved poses within 1e-6,
+   ``trace_report.json`` with ``track`` spans (>= 2) and
+   ``keyframes_inserted`` (>= 1), ``keyframe`` events in
+   ``events.jsonl``, and ``load_session`` into a fresh
+   ``MultiMapper(cfg, device="cuda")`` giving every ``MapState`` field of
+   every live map bitwise, with a vocabulary; prints the frames, init
+   frame, tracked share, ATE, fps, save and load ms and bytes written;
 5. two more chunks: one with a synchronized wall clock per stage (the
    split of a chunk's time), one under ``torch.profiler`` for the device's
    busy time; in that chunk every device operation launched inside a
@@ -234,6 +256,8 @@ DIST_REPS, GBA_REPS = 5, 2
 # join timeout
 MH_ROUNDS = 8
 MH_TIMEOUT_S = 300
+# the driver path: frames it reads from disk after the main path's init frame
+DRIVER_AFTER_INIT = 48
 
 
 def bench_cfg():
@@ -532,6 +556,7 @@ def main_path_phase(torch, ph, device):
     ate = float(ate_from_poses(est, gt))
     steady = chunk_s[1:] if len(chunk_s) > 1 else chunk_s  # first chunk warms up
     result = {
+        "init_frame": next(k for k, f in enumerate(sess.frames) if f.state == "OK"),
         "frames_streamed": n_stream, "frames_ok": n_ok, "keyframes": sess.n_kf,
         "chunk_s_median": float(np.median(steady)),
         "fps_steady": float(CHUNK * len(steady) / np.sum(steady)),
@@ -553,6 +578,208 @@ def main_path_phase(torch, ph, device):
     if not np.isfinite(ate) or ate >= 0.5:
         raise AssertionError(f"ATE {ate} m")
     return sess, seq, i, result
+
+
+def write_png_gray(path, img) -> None:
+    """An 8-bit grayscale, non-interlaced PNG (filter 0 on every row) with
+    the standard library's zlib and struct: the same file whatever the
+    machine has installed."""
+    import struct
+    import zlib
+
+    img = np.ascontiguousarray(img, np.uint8)
+    h, w = img.shape
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), img], axis=1).tobytes()
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    Path(path).write_bytes(
+        b"\x89PNG\r\n\x1a\n"
+        + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+        + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def write_tum_dir(out, timestamps, images, poses_cw) -> Path:
+    """A TUM RGB-D sequence directory as ``io/synthetic.export_tum_sequence``
+    lays it out (``rgb/<stamp>.png``, ``rgb.txt`` with its lines,
+    ``groundtruth.txt`` through the port's ``save_tum``), the PNGs from
+    ``write_png_gray``."""
+    from orbslamm_tpu_torch.io.trajectory import save_tum
+
+    out = Path(out)
+    (out / "rgb").mkdir(parents=True, exist_ok=True)
+    lines = ["# color images", "# file: synthetic", "# timestamp filename"]
+    for ts, img in zip(timestamps, images):
+        name = f"rgb/{ts:.6f}.png"
+        write_png_gray(out / name, img)
+        lines.append(f"{ts:.6f} {name}")
+    (out / "rgb.txt").write_text("\n".join(lines) + "\n")
+    save_tum(out / "groundtruth.txt", timestamps, poses_cw)
+    return out
+
+
+def software_check() -> dict:
+    """Whether cv2, PIL and matplotlib import here, and whether g++ and
+    zlib's header (the native frame loader's build) are found."""
+    import importlib
+    import shutil
+
+    found = {}
+    for name in ("cv2", "PIL", "matplotlib"):
+        try:
+            importlib.import_module(name)
+            found[name] = True
+        except ImportError:
+            found[name] = False
+    gxx = shutil.which("g++")
+    found["g++"] = gxx
+    found["zlib.h"] = gxx is not None and subprocess.run(
+        [gxx, "-fsyntax-only", "-x", "c++", "-"], input="#include <zlib.h>\n",
+        capture_output=True, text=True, timeout=60).returncode == 0
+    return found
+
+
+def _resolved_pose_errors(ok_frames, poses_cw, tum_path, kitti_path) -> dict:
+    """Largest differences between the trajectory files as ``load_tum`` and
+    ``load_kitti`` read them and the poses they were written from."""
+    from orbslamm_tpu_torch.io import trajectory as tio
+
+    Rwc = np.transpose(poses_cw[:, :3, :3], (0, 2, 1)).astype(np.float64)
+    twc = -np.einsum("nij,nj->ni", Rwc, poses_cw[:, :3, 3].astype(np.float64))
+    quat = np.stack([tio._rot_to_quat_np(R) for R in Rwc])
+    stamps, rows = tio.load_tum(tum_path)
+    kitti = tio.load_kitti(kitti_path)
+    return {
+        "tum_stamp": float(np.abs(stamps - [f.timestamp for f in ok_frames]).max()),
+        "tum_position": float(np.abs(rows[:, :3] - twc).max()),
+        "tum_quaternion": float(np.abs(rows[:, 3:] - quat).max()),
+        "kitti_rotation": float(np.abs(kitti[:, :3, :3] - Rwc).max()),
+        "kitti_position": float(np.abs(kitti[:, :3, 3] - twc).max()),
+    }
+
+
+def driver_path_phase(torch, ph, device, seq, init_frame, smi):
+    """The main path's frames written to disk, read back and run through the
+    driver; its files read back (see the module docstring, 4b)."""
+    import tempfile
+
+    from orbslamm_tpu_torch.driver import RobotFeed, run_robots, save_outputs
+    from orbslamm_tpu_torch.eval.ate import associate, ate_rmse
+    from orbslamm_tpu_torch.io import native, serialize
+    from orbslamm_tpu_torch.io import trajectory as tio
+    from orbslamm_tpu_torch.io.datasets import load_tum_sequence
+    from orbslamm_tpu_torch.models.multimap import MultiMapper
+    from orbslamm_tpu_torch.models.system import resolve_frame_poses
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    cfg = bench_cfg()
+    n = min(len(seq.timestamps), init_frame + DRIVER_AFTER_INIT)
+    if not native.native_available():
+        raise AssertionError("the native frame loader does not build here")
+    with tempfile.TemporaryDirectory(prefix="driver_path_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        root = write_tum_dir(tmp / "seq", seq.timestamps[:n], seq.images[:n],
+                             seq.poses_cw[:n])
+        write_s = time.perf_counter() - t0
+        loaded = load_tum_sequence(root)
+        if len(loaded) != n or not np.array_equal(loaded.timestamps,
+                                                  [float(f"{t:.6f}") for t in seq.timestamps[:n]]):
+            raise AssertionError("load_tum_sequence did not read back the written sequence")
+        decoded0, fallbacks0 = native.decoded, native.fallbacks
+        out = tmp / "out"
+        ph.launches = 0  # counts from here on are the driver path's
+        ph.launches_by_shape.clear()
+        t0 = time.perf_counter()
+        mm, report = run_robots(cfg, [RobotFeed(loaded.prefetched(cfg.camera.height,
+                                                                  cfg.camera.width),
+                                                "robot0")],
+                                out_dir=out, verbose=False, device=device)
+        sync()
+        run_s = time.perf_counter() - t0
+        launches, by_shape = ph.launches, _by_shape(ph.launches_by_shape)
+        n_decoded = native.decoded - decoded0
+        if n_decoded != n or native.fallbacks != fallbacks0:
+            raise AssertionError(f"the native loader decoded {n_decoded} of {n} frames, "
+                                 f"{native.fallbacks - fallbacks0} fell back")
+        recs = mm.robots[0].frames
+        first_ok = next((k for k, f in enumerate(recs) if f.state == "OK"), None)
+        if len(recs) != n or first_ok is None:
+            raise AssertionError(f"no init within {len(recs)} of {n} frames")
+        after = recs[first_ok:]
+        n_ok = sum(f.state == "OK" for f in after)
+        print("driver frames: " + " ".join(f"{f.state[0]}{f.n_inliers}" for f in recs),
+              flush=True)
+        if n_ok < 0.9 * len(after):
+            raise AssertionError(f"tracked {n_ok} of the {len(after)} frames after init")
+        # the trajectory against the ground truth, both through load_tum
+        est_ts, est = tio.load_tum(out / "robot0_frames_tum.txt")
+        gt_ts, gt = tio.load_tum(root / "groundtruth.txt")
+        ia, ib = associate(est_ts, gt_ts)
+        ate = float(ate_rmse(est[ia, :3], gt[ib, :3], align="sim3"))
+        if len(ia) != len(est_ts) or not np.isfinite(ate) or ate >= 0.5:
+            raise AssertionError(f"driver ATE {ate} m over {len(ia)} of {len(est_ts)} poses")
+        ok_frames = [f for f in recs if f.state == "OK"]
+        pose_err = _resolved_pose_errors(ok_frames, np.stack(resolve_frame_poses(ok_frames)),
+                                         out / "robot0_frames_tum.txt",
+                                         out / "robot0_frames_kitti.txt")
+        if max(pose_err.values()) > 1e-6:
+            raise AssertionError(f"trajectory files differ from the resolved poses: {pose_err}")
+        trace = json.loads((out / "trace_report.json").read_text())
+        events = [json.loads(x) for x in (out / "events.jsonl").read_text().splitlines()]
+        n_track = trace["stages"].get("track", {}).get("count", 0)
+        n_kf_ins = trace["counters"].get("keyframes_inserted", 0)
+        n_kf_ev = sum(e["kind"] == "keyframe" for e in events)
+        if n_track < 2 or n_kf_ins < 1 or n_kf_ev < 1:
+            raise AssertionError(f"trace: {n_track} track spans, {n_kf_ins} keyframes "
+                                 f"inserted, {n_kf_ev} keyframe events")
+        # the outputs written once more, timed, and the session read back
+        sync()
+        t0 = time.perf_counter()
+        save_outputs(mm, tmp / "again")
+        save_ms = (time.perf_counter() - t0) * 1e3
+        written = sum(f.stat().st_size for f in out.rglob("*") if f.is_file())
+        mm2 = MultiMapper(cfg, device=device)
+        t0 = time.perf_counter()
+        serialize.load_session(out / "maps", mm2)
+        sync()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        live = mm.live_maps()
+        if len(mm2.maps) != len(live) or any(mc.voc is None for mc in mm2.maps):
+            raise AssertionError(f"load_session gave {len(mm2.maps)} maps for {len(live)}")
+        for a, b in zip(live, mm2.maps):
+            for k, x in a.map._asdict().items():
+                y = getattr(b.map, k)
+                if x.dtype != y.dtype or y.device != x.device or not torch.equal(x, y):
+                    raise AssertionError(f"map {a.map_id} field {k} differs after load_session")
+            if b.n_kf != a.n_kf:
+                raise AssertionError(f"map {a.map_id}: {b.n_kf} keyframes loaded, {a.n_kf} saved")
+        files = sorted(str(f.relative_to(out)) for f in out.rglob("*") if f.is_file())
+    # RunReport's fps is at the median frame, here an init frame (init
+    # spans are cheap); the frames after init are the tracked stream
+    fps = report.timing_summary()["robot0"]["fps"]
+    fps_after = len(after) / sum(report.track_times["robot0"][first_ok:])
+    result = {
+        "frames": n, "init_frame": first_ok, "frames_after_init": len(after),
+        "frames_ok_after_init": n_ok, "tracked_share": n_ok / len(after), "ate_m": ate,
+        "fps": fps, "fps_after_init": fps_after, "run_s": run_s, "write_png_s": write_s,
+        "save_ms": save_ms, "load_ms": load_ms, "bytes_written": written, "files": files,
+        "keyframes": [mc.n_kf for mc in live], "trace_track_spans": n_track,
+        "keyframes_inserted": n_kf_ins, "keyframe_events": n_kf_ev,
+        "trajectory_file_err": pose_err, "launches": launches, "launches_by_shape": by_shape,
+    }
+    print("driver_path " + json.dumps(result), flush=True)
+    print(f"driver path: {n} frames from disk, init at frame {first_ok}, tracked "
+          f"{n_ok}/{len(after)} ({n_ok / len(after):.3f}), ATE {ate:.4f} m, {fps:.2f} fps "
+          f"(timing_summary), {fps_after:.2f} fps after init, "
+          f"save {save_ms:.1f} ms, load {load_ms:.1f} ms, {written} bytes written on {smi}",
+          flush=True)
+    return result
 
 
 def match_range_ops(prof, stage_name="matching.match_tables"):
@@ -1798,6 +2025,7 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
+    print("packages " + json.dumps(software_check()) + f" on {smi}", flush=True)
     device = "cuda"
 
     import orbslamm_tpu_torch  # noqa: F401  (pins float32 / TF32 off)
@@ -1818,6 +2046,8 @@ def main() -> int:
     err, timings = phase("kernels", kernel_phase, torch, ph, device)
     sess, seq, i, result = phase("main_path", main_path_phase, torch, ph, device)
     main_launches = ph.launches
+    driver_result = phase("driver_path", driver_path_phase, torch, ph, device, seq,
+                          result["init_frame"], smi)
     phase("split", split_phase, torch, sess, seq, i, result["chunk_s_median"])
     phase("vocab_training", vocab_training_phase, torch, sess.map)
     # the dist_ba phase's inputs from the main path: its newest keyframe's
@@ -1845,7 +2075,8 @@ def main() -> int:
         "route": "cuda",
         "source": "orbslamm_tpu_torch/csrc/hamming.cu",
         "replaces": "orbslamm_tpu/ops/pallas/hamming.py:208",
-        "launches": (main_launches + loop_result["launches"] + mm_result["launches"]
+        "launches": (main_launches + driver_result["launches"] + loop_result["launches"]
+                     + mm_result["launches"]
                      + bank_result["launches"] + stereo_result["launches"]
                      + rgbd_result["launches"] + mh_result["launches"]),
         "max_abs_err": err,

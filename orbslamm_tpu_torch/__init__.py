@@ -10,9 +10,10 @@ in ``ops/cuda/hamming.py``.
 This package imports neither jax nor any module of the JAX package. It
 keeps its own copies of the JAX package's numpy-only modules:
 ``utils/config.py``, ``io/synthetic.py`` (with a ``fabricate_map`` that builds
-this package's ``MapState``), ``io/trajectory.py`` (the TUM writer) and
-``eval/ate.py``; ``tests/test_torch_package.py`` holds them equal to the
-originals.
+this package's ``MapState``), ``io/trajectory.py``, ``io/datasets.py`` and
+``eval/ate.py``; ``tests/test_torch_package.py`` and ``tests/test_torch_io.py``
+hold them equal to the originals. Map, session and trajectory files are
+the same in both packages: each reads the other's.
 
 The caller always names the device (``empty_map``, ``make_extractor`` and
 ``MonocularSession`` take ``device``); nothing here picks one silently.

@@ -33,7 +33,7 @@ from orbslamm_tpu_torch.models import map_state as ms
 from orbslamm_tpu_torch.models.system import MapContext, RobotTracker, TrackingState
 from orbslamm_tpu_torch.ops import bow, geometry as geo
 from orbslamm_tpu_torch.utils.config import SlamConfig
-from orbslamm_tpu_torch.utils.trace import stage
+from orbslamm_tpu_torch.utils.trace import get_tracer, stage
 
 
 class MergeResult(NamedTuple):
@@ -192,7 +192,8 @@ class MultiMapper:
     # -- per-frame driver --------------------------------------------------
     def process_frame(self, robot_idx: int, image, timestamp):
         t = self.robots[robot_idx]
-        rec = t.process_frame(image, timestamp)
+        with get_tracer().span("track", robot=t.name):
+            rec = t.process_frame(image, timestamp)
         if t.state == TrackingState.LOST and self.multi_mapping_enabled:
             self._handle_loss(t, float(timestamp))
         return rec
@@ -203,6 +204,7 @@ class MultiMapper:
         self.multi_mapping_enabled = bool(on)
         for t in self.robots:
             t.reloc_on_loss = not on
+        get_tracer().event("multi_mapping_toggled", on=bool(on))
 
     def process_frames(self, robot_idx: int, images, timestamps):
         """Pipelined chunk driver for one robot: chunk k+1 is dispatched
@@ -211,6 +213,7 @@ class MultiMapper:
         merge pump runs at every chunk boundary. Init and loss frames take
         the per-frame path with new-map-on-loss."""
         t = self.robots[robot_idx]
+        tr = get_tracer()
         recs = []
         pending = None
 
@@ -225,7 +228,8 @@ class MultiMapper:
         while i < n:
             cs = t.chunk_size
             if t.state == TrackingState.OK and n - i >= cs:
-                tok = t._dispatch_chunk(images[i:i + cs], timestamps[i:i + cs])
+                with tr.span("track", robot=t.name, chunk=cs):
+                    tok = t._dispatch_chunk(images[i:i + cs], timestamps[i:i + cs])
                 i += cs
                 if pending is not None:
                     recs.extend(finish(pending))
@@ -248,6 +252,9 @@ class MultiMapper:
             # keep the orphan map; continue in a brand-new one (the ORBSLAMM
             # signature, Tracking.cc:330-366)
             t.switch_map(self.new_map())
+            tr = get_tracer()
+            tr.incr("new_maps_on_loss")
+            tr.event("new_map_on_loss", robot=t.name, map_id=t.mapctx.map_id, ts=timestamp)
         else:
             # early loss: reset the young map (Tracking.cc:520-528); the
             # fresh map_id orphans the discarded generation's records
@@ -337,7 +344,12 @@ class MultiMapper:
                 if mcA.n_kf < cfg.loop.min_kfs_for_merge:
                     continue
                 if mcA.n_kf + mcB.n_kf >= cfg.capacity.max_keyframes:
-                    continue  # the merged map would not fit
+                    # the merged map would not fit
+                    get_tracer().event("merge_skipped_capacity", base=mcA.map_id,
+                                       absorbed=mcB.map_id, n_kf_base=mcA.n_kf,
+                                       n_kf_absorbed=mcB.n_kf,
+                                       capacity=cfg.capacity.max_keyframes)
+                    continue
                 with stage("merge.scan"):
                     out = lc_stage.batched_merge_scan_scores(cfg, mcB.map, mcB.kf_bow, padded,
                                                              mcA.map, mcA.kf_bow)
@@ -367,7 +379,8 @@ class MultiMapper:
         for tok in pending:
             if tok["mcB"].merged_into is not None or tok["mcA"].merged_into is not None:
                 continue
-            with stage("merge.verify"):
+            with get_tracer().span("merge_scan", absorbed=tok["mcB"].map_id,
+                                   base=tok["mcA"].map_id), stage("merge.verify"):
                 self._dispatch_verifies(tok)
         return False
 
@@ -408,7 +421,11 @@ class MultiMapper:
         return self.flush_merge_scans()
 
     def _do_merge(self, mcA: MapContext, mcB: MapContext, S_cam, slot_b: int, slot_a: int):
-        with stage("merge.apply"):
+        tr = get_tracer()
+        tr.event("map_merge", absorbed=mcB.map_id, base=mcA.map_id, slot_b=slot_b,
+                 slot_a=slot_a)
+        tr.incr("map_merges")
+        with tr.span("merge", absorbed=mcB.map_id, base=mcA.map_id), stage("merge.apply"):
             self._do_merge_inner(mcA, mcB, S_cam, slot_b, slot_a)
 
     def _do_merge_inner(self, mcA: MapContext, mcB: MapContext, S_cam, slot_b: int,
@@ -417,7 +434,11 @@ class MultiMapper:
         nA, nB = mcA.n_kf, mcB.n_kf
         res = merge_maps(cfg, mcA.map, mcB.map, S_cam, slot_b, slot_a, nA)
         mcA.map = res.map
-        self.merge_evictions.append(int(res.n_evicted))
+        n_evicted = int(res.n_evicted)
+        self.merge_evictions.append(n_evicted)
+        if n_evicted:
+            get_tracer().event("merge_landmarks_evicted", base=mcA.map_id,
+                               absorbed=mcB.map_id, n_evicted=n_evicted)
         merged_slot_b = nA + slot_b
         mcA.n_kf = nA + nB
         # anchors for the rebases after the correction: A-side robots ride

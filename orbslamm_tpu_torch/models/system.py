@@ -46,7 +46,7 @@ from orbslamm_tpu_torch.ops import ransac
 from orbslamm_tpu_torch.ops import stereo as st
 from orbslamm_tpu_torch.ops.matching import _top_k
 from orbslamm_tpu_torch.ops.orb import Features
-from orbslamm_tpu_torch.utils.trace import stage
+from orbslamm_tpu_torch.utils.trace import get_tracer, stage
 
 class TrackingState(enum.Enum):
     NO_IMAGES_YET = 0
@@ -244,14 +244,19 @@ class MapContext:
         first spawns its close landmarks from depth. Returns the slot."""
         cfg = self.cfg
         slot = self.n_kf
-        self.map = ms.insert_keyframe(self.map, slot, T_cw, K, feats, feat_lm, frame_id,
-                                      timestamp)
-        self.n_kf += 1
-        if feats.depth is not None:
-            # Tracking::CreateNewKeyFrame, stereo branch
-            self.map = lm_stage.create_depth_landmarks(cfg, self.map, slot, feats.depth)
-        self.map, _ = lm_stage.process_new_keyframe_cached(cfg, self.map, slot,
-                                                           ms.lm_indicator(self.map))
+        tr = get_tracer()
+        with tr.span("local_mapping", map_id=self.map_id, slot=slot):
+            self.map = ms.insert_keyframe(self.map, slot, T_cw, K, feats, feat_lm, frame_id,
+                                          timestamp)
+            self.n_kf += 1
+            if feats.depth is not None:
+                # Tracking::CreateNewKeyFrame, stereo branch
+                self.map = lm_stage.create_depth_landmarks(cfg, self.map, slot, feats.depth)
+            self.map, _ = lm_stage.process_new_keyframe_cached(cfg, self.map, slot,
+                                                               ms.lm_indicator(self.map))
+        tr.incr("keyframes_inserted")
+        tr.event("keyframe", map_id=self.map_id, slot=slot, frame_id=int(frame_id),
+                 ts=float(timestamp))
         return slot
 
     # -- BoW database -----------------------------------------------------
@@ -325,6 +330,18 @@ class MapContext:
                 or self.n_kf < cfg.loop.min_kfs_for_merge
                 or slot - self.last_loop_kf < cfg.loop.kfs_between_loops):
             return False
+        with get_tracer().span("loop_detect", map_id=self.map_id):
+            enough = self._detect_loop(slot, precomputed)
+            ls, cand = self._verify_loop(slot, enough, generator)
+        if ls is None:
+            return False
+        self._correct_loop(slot, cand, ls)
+        return True
+
+    def _detect_loop(self, slot: int, precomputed) -> list[int]:
+        """Candidate keyframes for ``slot`` that passed the covisibility
+        consistency check (LoopClosing::DetectLoop)."""
+        cfg = self.cfg
         with stage("loop.detect"):
             if precomputed is None:
                 scores, allowed, min_score = lc_stage.loop_candidates(
@@ -337,7 +354,7 @@ class MapContext:
             floor = max(min_score, 0.015)
             if float(sc.max()) < floor:
                 self._consist = []  # no candidates: chains reset (LoopClosing.cc:152)
-                return False
+                return []
             # covisibility-group accumulation + top-k representatives
             # (KeyFrameDatabase.cc:129-200)
             acc_d, nb_d = lc_stage.candidate_groups(
@@ -367,9 +384,7 @@ class MapContext:
                 if count >= cfg.loop.covisibility_consistency:
                     enough.append(c)
             self._consist = new_groups
-        if not enough:
-            return False
-        return self.verify_and_correct_loop(slot, enough, generator)
+        return enough
 
     def verify_and_correct_loop(self, slot: int, candidates, generator: torch.Generator) -> bool:
         """The part of loop closing after detection: Sim3 verification of
@@ -377,32 +392,46 @@ class MapContext:
         keyframes), then the essential-graph correction of the first that
         verifies, one global-BA slice and the schedule of the overlapped
         rest (LoopClosing::ComputeSim3 + CorrectLoop)."""
-        cfg = self.cfg
-        ls, cand = None, -1
+        with get_tracer().span("loop_detect", map_id=self.map_id):
+            ls, cand = self._verify_loop(slot, candidates, generator)
+        if ls is None:
+            return False
+        self._correct_loop(slot, cand, ls)
+        return True
+
+    def _verify_loop(self, slot: int, candidates, generator: torch.Generator):
+        """(the first verified Sim3, its candidate), or (None, -1)."""
+        if not candidates:
+            return None, -1
         with stage("loop.verify"):
             for c in candidates:
                 if slot - self._loop_verify_cooldown.get(c, -(10 ** 9)) < 8:
                     continue
-                ls_c = lc_stage.compute_loop_sim3(cfg, self.map, slot, c, generator)
-                if bool(ls_c.success):
-                    ls, cand = ls_c, c
-                    break
+                ls = lc_stage.compute_loop_sim3(self.cfg, self.map, slot, c, generator)
+                if bool(ls.success):
+                    return ls, c
                 self._loop_verify_cooldown[c] = slot
-        if ls is None:
-            return False
-        with stage("loop.correct"):
-            self.map = lc_stage.correct_loop(cfg, self.map, slot, cand, ls.S_ba)
-        # one immediate slice stabilizes the seam; the rest of the global
-        # BA runs overlapped, one slice per chunk boundary
-        with stage("gba.slice"):
-            self.map, cost = lc_stage.global_bundle_adjust(
-                cfg, self.map, iters=self.gba_slice_iters, cg_iters=self.gba_cg_iters)
-            self.gba_slices_run += 1
-        self.schedule_gba(first_cost=float(cost))
+        return None, -1
+
+    def _correct_loop(self, slot: int, cand: int, ls):
+        cfg = self.cfg
+        tr = get_tracer()
+        with tr.span("loop_correct", map_id=self.map_id):
+            with stage("loop.correct"):
+                self.map = lc_stage.correct_loop(cfg, self.map, slot, cand, ls.S_ba)
+            # one immediate slice stabilizes the seam; the rest of the global
+            # BA runs overlapped, one slice per chunk boundary
+            with stage("gba.slice"):
+                self.map, cost = lc_stage.global_bundle_adjust(
+                    cfg, self.map, iters=self.gba_slice_iters, cg_iters=self.gba_cg_iters)
+                self.gba_slices_run += 1
+            self.schedule_gba(first_cost=float(cost))
         self.last_loop_kf = slot
         self._consist = []
         self.loops_closed.append((slot, cand, int(ls.n_inliers)))
-        return True
+        tr.incr("loops_closed")
+        tr.event("loop_closed", map_id=self.map_id, slot=slot, cand=cand,
+                 inliers=int(ls.n_inliers))
 
     def schedule_gba(self, first_cost: float | None = None):
         """(Re-)schedule the overlapped global BA; re-scheduling while slices
@@ -414,6 +443,8 @@ class MapContext:
     def gba_resolve_cost(self, cost: float) -> None:
         """Stop the schedule once a slice's relative improvement stalls."""
         if self._gba_last_cost is not None and cost >= self._gba_last_cost * (1.0 - 1e-3):
+            get_tracer().event("gba_converged", map_id=self.map_id, cost=cost,
+                               slices_left=self.gba_remaining)
             self.gba_remaining = 0
         self._gba_last_cost = cost
 
@@ -427,11 +458,14 @@ class MapContext:
             self.gba_resolve_cost(cost)
         if self.gba_remaining <= 0:
             return False
-        with stage("gba.slice"):
-            self.map, self._gba_cost_pending = lc_stage.global_bundle_adjust(
-                self.cfg, self.map, iters=self.gba_slice_iters, cg_iters=self.gba_cg_iters)
+        tr = get_tracer()
+        with tr.span("gba_slice", map_id=self.map_id, remaining=self.gba_remaining):
+            with stage("gba.slice"):
+                self.map, self._gba_cost_pending = lc_stage.global_bundle_adjust(
+                    self.cfg, self.map, iters=self.gba_slice_iters, cg_iters=self.gba_cg_iters)
         self.gba_remaining -= 1
         self.gba_slices_run += 1
+        tr.incr("gba_slices")
         return True
 
     def summary(self) -> dict:
@@ -539,6 +573,7 @@ class RobotTracker:
             mc.n_kf = 0
             if mc.kf_bow is not None:
                 mc.kf_bow = torch.zeros_like(mc.kf_bow)
+            get_tracer().event("early_loss_reset", map_id=mc.map_id, robot=self.name)
             mc.renew_id()
             self.switch_map(mc)
 
@@ -821,6 +856,10 @@ class RobotTracker:
         if bool(s.new_kf):
             slot = int(s.kf_slot)
             mc.n_kf = slot + 1
+            tr = get_tracer()
+            tr.incr("keyframes_inserted")
+            tr.event("keyframe", map_id=mc.map_id, slot=slot, frame_id=self.frame_id,
+                     ts=float(timestamp))
             mc.update_bow_row(slot)
             if mc.try_close_loop(slot, self.generator):
                 # the correction moved the map: restart the motion model there
@@ -912,6 +951,7 @@ class RobotTracker:
         # a chunk dispatched before a reset is stale: emit its records but
         # leave the tracker's new state machine alone
         stale = token["gen"] != self._gen or self.mapctx is not mc
+        tr = get_tracer()
         recs: list[FrameRecord] = []
         new_kfs: list[tuple[int, int]] = []  # (slot, j)
         # pass 1: records + keyframe bookkeeping — the map knows all of the
@@ -926,6 +966,9 @@ class RobotTracker:
                 if bool(s.new_kf[j]):
                     slot = int(s.kf_slot[j])
                     mc.n_kf = max(mc.n_kf, slot + 1)
+                    tr.incr("keyframes_inserted")
+                    tr.event("keyframe", map_id=mc.map_id, slot=slot,
+                             frame_id=token["fid0"] + j, ts=float(timestamps[j]))
                     new_kfs.append((slot, j))
             elif not stale:
                 self.state = TrackingState.LOST

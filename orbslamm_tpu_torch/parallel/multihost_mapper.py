@@ -52,7 +52,7 @@ from orbslamm_tpu_torch.models.multimap import MultiMapper
 from orbslamm_tpu_torch.models.system import MapContext
 from orbslamm_tpu_torch.ops import bow
 from orbslamm_tpu_torch.parallel import multihost as mh
-from orbslamm_tpu_torch.utils.trace import stage
+from orbslamm_tpu_torch.utils.trace import get_tracer, stage
 
 
 def _sparsify_rows(rows: np.ndarray, top_w: int):
@@ -92,7 +92,10 @@ class HostMapperBridge:
         self.events: list[tuple[str, dict]] = []
 
     def _event(self, name: str, **fields):
+        """Record a bridge event here (counted per bridge) and in the
+        process Tracer."""
         self.events.append((name, fields))
+        get_tracer().event(name, **fields)
 
     def count(self, name: str) -> int:
         """How many events of ``name`` the bridge has recorded."""
@@ -173,7 +176,7 @@ class HostMapperBridge:
         imported into the local MultiMapper this round."""
         if self.n_proc == 1:
             return 0
-        with stage("multihost.exchange"):
+        with get_tracer().span("multihost_exchange"), stage("multihost.exchange"):
             sigs = self._local_signatures()
             meta = [{"map_id": s["map_id"], "n_kf": s["n_kf"]} for s in sigs]
             packets = mh.all_gather_bytes(pickle.dumps({"sigs": sigs, "meta": meta}),

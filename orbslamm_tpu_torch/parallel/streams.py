@@ -56,7 +56,7 @@ from orbslamm_tpu_torch.ops import bow as bow_ops
 from orbslamm_tpu_torch.ops import orb as orb_ops
 from orbslamm_tpu_torch.ops.orb import Features
 from orbslamm_tpu_torch.utils.config import SlamConfig
-from orbslamm_tpu_torch.utils.trace import stage
+from orbslamm_tpu_torch.utils.trace import get_tracer, stage
 
 # chunks between sync points while a follower has a backlog
 REPLAY_INTERVAL = 4
@@ -333,7 +333,10 @@ class StreamBank:
         return sum(1 for n, _ in self.events if n == name)
 
     def _event(self, name: str, **fields):
+        """Record a bank event here (counted per bank) and in the process
+        Tracer."""
         self.events.append((name, fields))
+        get_tracer().event(name, **fields)
 
     def _tensor(self, a, device=None) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.float32), device=device or self.device)
@@ -427,7 +430,7 @@ class StreamBank:
         voc = self.trackers[0].mapctx.voc if want_bow else None
         vocs = [self._voc_on(voc, d) for d in self._devs] if want_bow else [None] * R
         bows = self.bow_all if want_bow else [None] * R
-        with stage("bank.chunk"):
+        with get_tracer().span("multistream_chunk", n_streams=R, chunk=C), stage("bank.chunk"):
             m2, ts2, bow2, summ, evs = self._step(
                 [self.m_all[r] for r in run], [self.ts_all[r] for r in run],
                 [bows[r] for r in run], [self.K_all[r] for r in run],
@@ -466,7 +469,8 @@ class StreamBank:
             if id(mc0) not in seen_mc and mc0._gba_cost_pending is not None:
                 seen_mc.add(id(mc0))
                 gba_mcs.append(mc0)
-        with stage("bank.fetch"):
+        tr = get_tracer()
+        with tr.span("ms_fetch"), stage("bank.fetch"):
             s_all, ev_all, gba_costs = _fetch((token["summaries"], token["kf_events"],
                                                [mc0._gba_cost_pending for mc0 in gba_mcs]))
         for mc0, c in zip(gba_mcs, gba_costs):
@@ -505,6 +509,7 @@ class StreamBank:
                         if r not in self.followers:
                             mc.n_kf = max(mc.n_kf, slot + 1)
                         new_kfs.append((slot, j))
+                        tr.incr("keyframes_inserted")
                 elif not ok and not stale:
                     if t.state != TrackingState.LOST:
                         newly_lost.append(r)
@@ -563,7 +568,7 @@ class StreamBank:
             mc = t.mapctx
             if mc.voc is None and t.on_keyframe is None:
                 continue
-            with stage("bank.kf_events"):
+            with tr.span("ms_kf_events"), stage("bank.kf_events"):
                 if want_bow:
                     # BoW rows and loop scans ran in the chunk's phase B
                     ev = ev_all[r]
@@ -592,7 +597,7 @@ class StreamBank:
         for t in self.trackers:
             t._in_chunk_finish = False
         if self.on_chunk_end is not None:
-            with stage("bank.pump_scans"):
+            with tr.span("ms_pump_scans"), stage("bank.pump_scans"):
                 self.on_chunk_end()
         # merge reconciliation: a robot whose active map changed during this
         # finish (the absorbed side) adopts its new context; robots on the
@@ -644,7 +649,7 @@ class StreamBank:
                 continue  # the owner runs the shared map's slices
             mc = t.mapctx
             if mc.gba_remaining > 0:
-                with stage("bank.gba_slice"):
+                with tr.span("ms_gba_slice"), stage("bank.gba_slice"):
                     self._sync_tracker(r)
                     if mc.gba_slice():
                         self.m_all[r] = _copy(mc.map, self._devs[r])
@@ -873,6 +878,7 @@ class StreamBank:
         backlog into the authoritative map, then refresh every member from
         it, with the owner's accumulated loop corrections threaded through
         the followers."""
+        tr = get_tracer()
         self._want_sync = False
         self._chunks_since_sync = 0
         self.sync_points += 1
@@ -881,7 +887,7 @@ class StreamBank:
             if o in self.followers:
                 continue  # a stale entry: the owner was demoted or lost
             self._sync_tracker(o)
-            with stage("bank.follower_replay"):
+            with tr.span("ms_follower_replay"), stage("bank.follower_replay"):
                 for r, ow in list(self.followers.items()):
                     if ow != o:
                         continue
@@ -889,7 +895,7 @@ class StreamBank:
                     if slots:
                         self._replay_follower_kfs(r, o, slots)
             reb = self._shared_rebase.pop(o, None)
-            with stage("bank.refresh_shared"):
+            with tr.span("ms_refresh_shared"), stage("bank.refresh_shared"):
                 # the owner was rebased at correction time
                 self._refresh_shared(o, rebase=reb, rebase_skip={o})
 

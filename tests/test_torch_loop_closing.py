@@ -595,12 +595,17 @@ def test_try_close_loop_matches_jax(monkeypatch, device):
     order, and the closed loop (slot, candidate, inliers). The port's own
     ``loop_scan`` within 1e-5 (L1 sums in another order). Keyframe poses
     after the correction and its GBA slice within 1e-3, as correct_loop.
+    Both packages' Tracers record the same ``loop_detect`` and
+    ``loop_correct`` span counts, ``loops_closed`` counter and
+    ``loop_closed`` events (the host clock's ``t`` aside).
     The ``cuda`` case runs the port on the card (float scatter sums in
     any order there)."""
     if device == "cuda" and not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     from orbslamm_tpu.models import system as jsys
+    from orbslamm_tpu.utils.trace import get_tracer as jax_tracer
     from orbslamm_tpu_torch.models import system as tsys
+    from orbslamm_tpu_torch.utils.trace import get_tracer as port_tracer
 
     m_j, m_t, _ = build_drifted_ring(n_kf=20, per_turn=15.5, device=device)
     n_kf = int(np.asarray(m_j.kf_valid).sum())
@@ -627,6 +632,8 @@ def test_try_close_loop_matches_jax(monkeypatch, device):
     monkeypatch.setattr(jlc, "compute_loop_sim3", j_verify)
     monkeypatch.setattr(tlc, "compute_loop_sim3", t_verify)
 
+    jax_tracer().reset()
+    port_tracer().reset()
     slots = list(range(12, n_kf))
     pre = mj.loop_scan(slots)
     pre_t = mt.loop_scan(slots)
@@ -650,6 +657,17 @@ def test_try_close_loop_matches_jax(monkeypatch, device):
     assert mt.gba_slices_run == 1 and mt.gba_remaining == mj.gba_remaining
     np.testing.assert_allclose(mt.map.kf_pose.cpu().numpy(), np.asarray(mj.map.kf_pose),
                                atol=1e-3)
+    rep_j, rep_t = jax_tracer().report(), port_tracer().report()
+    counts = {k: v["count"] for k, v in rep_j["stages"].items()}
+    assert {k: v["count"] for k, v in rep_t["stages"].items()} == counts
+    assert counts["loop_correct"] == 1 and counts["loop_detect"] >= 1
+    assert rep_t["counters"] == rep_j["counters"] == {"loops_closed": 1.0}
+
+    def no_clock(events):
+        return [{k: v for k, v in e.items() if k != "t"} for e in events]
+
+    assert no_clock(port_tracer().events()) == no_clock(jax_tracer().events())
+    assert [e["kind"] for e in port_tracer().events()] == ["loop_closed"]
 
 
 @pytest.mark.cuda

@@ -59,7 +59,8 @@ def test_port_sources_import_nothing_of_jax_or_the_jax_package(path):
 
 
 def test_port_never_imports_jax():
-    """A fresh interpreter imports the whole port, runs a few frames of the
+    """A fresh interpreter imports the whole port (the I/O modules, the
+    driver and the TUM command line included), runs a few frames of the
     session on the CPU on a sequence from the port's own synthetic module,
     and has loaded neither jax nor any module of the JAX package."""
     script = textwrap.dedent("""
@@ -76,6 +77,9 @@ def test_port_never_imports_jax():
         from orbslamm_tpu_torch.parallel import (dist_ba, multihost, multihost_demo,
                                                  multihost_mapper, streams)
         from orbslamm_tpu_torch.utils import trace
+        from orbslamm_tpu_torch import driver
+        from orbslamm_tpu_torch.examples import mono_tum
+        from orbslamm_tpu_torch.io import datasets, native, serialize, trajectory
         from orbslamm_tpu_torch.io.synthetic import make_sequence
         from orbslamm_tpu_torch.eval import ate
         from orbslamm_tpu_torch.utils.config import (CameraConfig, CapacityConfig,
@@ -422,3 +426,9 @@ def test_paths_the_slice_lacks_are_refused():
     tr.adopt_merged_map(mc, geometry.sim3_identity(device="cpu"), remap)
     assert tr.mapctx is mc and torch.allclose(tr.T_cw, torch.as_tensor(poses[1]), atol=1e-6)
     assert tr.last_lm.tolist() == [-1, 7, 12]
+    # the driver (step 15a) runs; its live viewer is step 15b
+    from orbslamm_tpu_torch.driver import RobotFeed, run_robots
+    with pytest.raises(NotImplementedError, match="15b"):
+        run_robots(CFG, [RobotFeed([], "r0")], viewer_port=8080, device="cpu")
+    mm, report = run_robots(CFG, [RobotFeed([], "r0")], verbose=False, device="cpu")
+    assert mm.robots[0].name == "r0" and report.timing_summary() == {}
