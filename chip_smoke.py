@@ -48,7 +48,30 @@ non-zero and no phase failure is caught:
    ``events.jsonl``, and ``load_session`` into a fresh
    ``MultiMapper(cfg, device="cuda")`` giving every ``MapState`` field of
    every live map bitwise, with a vocabulary; prints the frames, init
-   frame, tracked share, ATE, fps, save and load ms and bytes written;
+   frame, tracked share, ATE, fps, save and load ms and bytes written.
+   The run serves the live viewer (``viewer_port``, a free port) while two
+   client threads poll ``/state`` and ``/map.png``; asserts at least two
+   answers of each during the run, every ``/state`` naming ``robot0``,
+   every ``/map.png`` a PNG that PIL decodes to ``viz.MAP_SIZE``, and a
+   ``map<id>.png`` of that size in the output for every live map with
+   keyframes; prints the answers, their latency (a request waits for the
+   driver's next span boundary) and the ms of one render of the final map;
+4c. the host path: the main path's configuration and sequence, frames 0 to
+   its init frame + HOST_AFTER_INIT, through ``MonocularSession(cfg,
+   device="cuda")`` frame by frame, three times: the fused step (the
+   baseline of the other two), ``tracker.use_fused`` off (the
+   host-sequenced tracking step and keyframe pipeline), and
+   ``tracker.defer_sync`` on (the fused step's summary read one frame
+   late); asserts for each the init at the main path's frame, >= 90% of
+   the frames after it tracked, a Sim3 ATE below 0.5 m and >= 2 kernel
+   launches per tracked frame; prints the fps after init of each beside
+   the main path's steady fps;
+4d. the command-line path: ``orbslamm_tpu_torch.examples.mono_synthetic``'s
+   ``main`` in this process with ``--scenario kidnap --device cuda --out
+   <tmp>`` (60 frames at 320x240, the camera moved elsewhere half way);
+   asserts its TUM and KITTI trajectories, the maps named in
+   ``maps/manifest.json``, a ``map<id>.png`` per map with keyframes, and
+   at least two maps (a new map after the kidnap);
 5. two more chunks: one with a synchronized wall clock per stage (the
    split of a chunk's time), one under ``torch.profiler`` for the device's
    busy time; in that chunk every device operation launched inside a
@@ -162,6 +185,7 @@ import json
 import socket
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 from types import SimpleNamespace
@@ -258,6 +282,9 @@ MH_ROUNDS = 8
 MH_TIMEOUT_S = 300
 # the driver path: frames it reads from disk after the main path's init frame
 DRIVER_AFTER_INIT = 48
+# the host path: frames after the main path's init frame, per switch setting
+HOST_AFTER_INIT = 32
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
 
 def bench_cfg():
@@ -660,10 +687,69 @@ def _resolved_pose_errors(ok_frames, poses_cw, tum_path, kitti_path) -> dict:
     }
 
 
-def driver_path_phase(torch, ph, device, seq, init_frame, smi):
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class ViewerClient:
+    """Two threads, one polling the live viewer's ``/state`` and one its
+    ``/map.png``, while a run goes on; each request waits for the driver's
+    next span boundary. ``got[path]`` holds (ms, body) per answer."""
+
+    def __init__(self, port: int):
+        self.base = f"http://127.0.0.1:{port}"
+        self.got = {"/state": [], "/map.png": []}
+        self._stop = threading.Event()
+        self._threads = [threading.Thread(target=self._poll, args=(path,), daemon=True)
+                         for path in self.got]
+
+    def _poll(self, path):
+        import urllib.request
+
+        while not self._stop.is_set():
+            t0 = time.perf_counter()
+            try:
+                body = urllib.request.urlopen(self.base + path, timeout=300).read()
+            except OSError:  # not serving yet, or stopped
+                time.sleep(0.05)
+                continue
+            self.got[path].append(((time.perf_counter() - t0) * 1e3, body))
+
+    def __enter__(self):
+        for t in self._threads:
+            t.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=320)
+
+
+def _png_size(path_or_bytes) -> tuple[int, int]:
+    """The size PIL decodes a PNG to (PIL must import)."""
+    import io
+
+    from PIL import Image
+
+    src = io.BytesIO(path_or_bytes) if isinstance(path_or_bytes, bytes) else path_or_bytes
+    with Image.open(src) as img:
+        img.load()
+        if img.format != "PNG":
+            raise AssertionError(f"{img.format} where a PNG was written")
+        return img.size
+
+
+def driver_path_phase(torch, ph, device, seq, init_frame, smi, span_chunks=4):
     """The main path's frames written to disk, read back and run through the
-    driver; its files read back (see the module docstring, 4b)."""
+    driver with its live viewer polled; its files read back (see the module
+    docstring, 4b). ``span_chunks`` is ``run_robots``' (its default)."""
     import tempfile
+
+    from orbslamm_tpu_torch.io import viz
+    from orbslamm_tpu_torch.io.viewer import LiveViewer
 
     from orbslamm_tpu_torch.driver import RobotFeed, run_robots, save_outputs
     from orbslamm_tpu_torch.eval.ate import associate, ate_rmse
@@ -693,15 +779,18 @@ def driver_path_phase(torch, ph, device, seq, init_frame, smi):
             raise AssertionError("load_tum_sequence did not read back the written sequence")
         decoded0, fallbacks0 = native.decoded, native.fallbacks
         out = tmp / "out"
+        port = _free_port()
         ph.launches = 0  # counts from here on are the driver path's
         ph.launches_by_shape.clear()
         t0 = time.perf_counter()
-        mm, report = run_robots(cfg, [RobotFeed(loaded.prefetched(cfg.camera.height,
-                                                                  cfg.camera.width),
-                                                "robot0")],
-                                out_dir=out, verbose=False, device=device)
-        sync()
-        run_s = time.perf_counter() - t0
+        with ViewerClient(port) as client:
+            mm, report = run_robots(cfg, [RobotFeed(loaded.prefetched(cfg.camera.height,
+                                                                      cfg.camera.width),
+                                                    "robot0")],
+                                    out_dir=out, verbose=False, span_chunks=span_chunks,
+                                    viewer_port=port, device=device)
+            sync()
+            run_s = time.perf_counter() - t0
         launches, by_shape = ph.launches, _by_shape(ph.launches_by_shape)
         n_decoded = native.decoded - decoded0
         if n_decoded != n or native.fallbacks != fallbacks0:
@@ -759,7 +848,26 @@ def driver_path_phase(torch, ph, device, seq, init_frame, smi):
                     raise AssertionError(f"map {a.map_id} field {k} differs after load_session")
             if b.n_kf != a.n_kf:
                 raise AssertionError(f"map {a.map_id}: {b.n_kf} keyframes loaded, {a.n_kf} saved")
+        # the live viewer: answers during the run, and every live map drawn
+        states = [json.loads(body) for _, body in client.got["/state"]]
+        pngs = [body for _, body in client.got["/map.png"]]
+        if (len(states) < 2 or len(pngs) < 2
+                or any("robot0" not in [r["name"] for r in st["robots"]] for st in states)
+                or any(p[:8] != PNG_SIGNATURE or _png_size(p) != viz.MAP_SIZE for p in pngs)):
+            raise AssertionError(f"the live viewer answered {len(states)} /state and "
+                                 f"{len(pngs)} /map.png requests during the run: {states}")
+        for mc in live:
+            if mc.n_kf and _png_size(out / f"map{mc.map_id}.png") != viz.MAP_SIZE:
+                raise AssertionError(f"map{mc.map_id}.png is not a {viz.MAP_SIZE} rendering")
+        sync()
+        t0 = time.perf_counter()
+        LiveViewer(mm)._map_png()
+        render_ms = (time.perf_counter() - t0) * 1e3
         files = sorted(str(f.relative_to(out)) for f in out.rglob("*") if f.is_file())
+    viewer = {"state_answers": len(states), "map_png_answers": len(pngs),
+              "state_ms_median": float(np.median([ms for ms, _ in client.got["/state"]])),
+              "map_png_ms_median": float(np.median([ms for ms, _ in client.got["/map.png"]])),
+              "render_ms": render_ms, "map_png_bytes": len(pngs[-1])}
     # RunReport's fps is at the median frame, here an init frame (init
     # spans are cheap); the frames after init are the tracked stream
     fps = report.timing_summary()["robot0"]["fps"]
@@ -772,6 +880,7 @@ def driver_path_phase(torch, ph, device, seq, init_frame, smi):
         "keyframes": [mc.n_kf for mc in live], "trace_track_spans": n_track,
         "keyframes_inserted": n_kf_ins, "keyframe_events": n_kf_ev,
         "trajectory_file_err": pose_err, "launches": launches, "launches_by_shape": by_shape,
+        "viewer": viewer,
     }
     print("driver_path " + json.dumps(result), flush=True)
     print(f"driver path: {n} frames from disk, init at frame {first_ok}, tracked "
@@ -779,6 +888,130 @@ def driver_path_phase(torch, ph, device, seq, init_frame, smi):
           f"(timing_summary), {fps_after:.2f} fps after init, "
           f"save {save_ms:.1f} ms, load {load_ms:.1f} ms, {written} bytes written on {smi}",
           flush=True)
+    print(f"live viewer: {len(states) + len(pngs)} requests answered during the run "
+          f"({len(states)} /state, {len(pngs)} /map.png; median {viewer['state_ms_median']:.1f} "
+          f"and {viewer['map_png_ms_median']:.1f} ms with the wait for a span boundary), "
+          f"one render of the final map {render_ms:.1f} ms on {smi}", flush=True)
+    return result
+
+
+def host_path_phase(torch, ph, device, seq, init_frame, main_fps, smi,
+                    after_init=HOST_AFTER_INIT):
+    """The main path's frames 0 to its init frame + ``after_init`` through
+    ``MonocularSession`` frame by frame: the fused step, then with
+    ``use_fused`` off (the host-sequenced tracking step), then with
+    ``defer_sync`` on (see the module docstring, 4c)."""
+    from orbslamm_tpu_torch.eval.ate import ate_from_poses
+    from orbslamm_tpu_torch.models.system import MonocularSession, resolve_frame_poses
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    cfg = bench_cfg()
+    n = min(len(seq.timestamps), init_frame + after_init + 1)
+    runs = {}
+    for mode in ("fused", "host", "deferred"):
+        sess = MonocularSession(cfg, device=device)
+        sess.enable_loop_closing = False
+        sess.tracker.use_fused = mode != "host"
+        sess.tracker.defer_sync = mode == "deferred"
+        ph.launches = 0  # counts from here on are this run's
+        ph.launches_by_shape.clear()
+        t0 = time.perf_counter()
+        for k in range(n):
+            if k == init_frame + 1:
+                sync()
+                t0 = time.perf_counter()
+            sess.process_frame(seq.images[k], float(seq.timestamps[k]))
+        sync()
+        stream_s = time.perf_counter() - t0
+        recs = sess.frames
+        first_ok = next((k for k, f in enumerate(recs) if f.state == "OK"), None)
+        after = recs[init_frame + 1:]
+        n_ok = sum(f.state == "OK" for f in after)
+        ok_frames = [f for f in recs if f.state == "OK"]
+        ate = float("nan")
+        if ok_frames:
+            est = np.stack(resolve_frame_poses(ok_frames))
+            gt = seq.poses_cw[[int(round(f.timestamp * cfg.camera.fps)) for f in ok_frames]]
+            ate = float(ate_from_poses(est, gt))
+        runs[mode] = {
+            "init_frame": first_ok, "frames_after_init": len(after), "frames_ok_after_init": n_ok,
+            "tracked_share": n_ok / max(1, len(after)), "keyframes": sess.n_kf, "ate_m": ate,
+            "fps_after_init": len(after) / stream_s, "launches": ph.launches,
+            "launches_by_shape": _by_shape(ph.launches_by_shape),
+            "inliers": [f.n_inliers for f in after],
+        }
+        print(f"host path ({mode}) frames: "
+              + " ".join(f"{f.state[0]}{f.n_inliers}" for f in recs), flush=True)
+        if first_ok != init_frame:
+            raise AssertionError(f"{mode}: init at frame {first_ok}, the main path's at "
+                                 f"{init_frame}")
+        if not after or n_ok < 0.9 * len(after):
+            raise AssertionError(f"{mode}: tracked {n_ok} of the {len(after)} frames after init")
+        if not np.isfinite(ate) or ate >= 0.5:
+            raise AssertionError(f"{mode}: ATE {ate} m")
+        if torch.device(device).type == "cuda" and ph.launches < 2 * n_ok:
+            raise AssertionError(f"{mode}: {ph.launches} kernel launches for {n_ok} tracked "
+                                 "frames")
+    result = {"frames": n, "runs": runs, "main_path_fps_steady": main_fps,
+              "launches": sum(r["launches"] for r in runs.values())}
+    print("host_path " + json.dumps(result), flush=True)
+    print(f"host path: fps after init frame by frame {runs['fused']['fps_after_init']:.2f} "
+          f"fused, {runs['host']['fps_after_init']:.2f} with use_fused off, "
+          f"{runs['deferred']['fps_after_init']:.2f} with defer_sync on; the main path's chunks "
+          f"{main_fps:.2f} fps steady; ATE {runs['fused']['ate_m']:.4f} / "
+          f"{runs['host']['ate_m']:.4f} / {runs['deferred']['ate_m']:.4f} m on {smi}",
+          flush=True)
+    return result
+
+
+def cli_path_phase(torch, ph, device, smi, frames=None):
+    """``examples/mono_synthetic.py``'s kidnap demo, its ``main`` called in
+    this process as the command line calls it; its output files read back
+    (see the module docstring, 4d). ``frames``: the demo's ``--frames``
+    (its default when None)."""
+    import tempfile
+
+    from orbslamm_tpu_torch.examples import mono_synthetic
+    from orbslamm_tpu_torch.io import trajectory as tio
+    from orbslamm_tpu_torch.io import viz
+
+    with tempfile.TemporaryDirectory(prefix="cli_path_") as tmp:
+        out = Path(tmp) / "out"
+        argv = ["--scenario", "kidnap", "--device", device, "--out", str(out)]
+        if frames:
+            argv += ["--frames", str(frames)]
+        ph.launches = 0  # counts from here on are the command line's
+        ph.launches_by_shape.clear()
+        t0 = time.perf_counter()
+        mono_synthetic.main(argv)
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        stamps, rows = tio.load_tum(out / "robot0_frames_tum.txt")
+        kitti = tio.load_kitti(out / "robot0_frames_kitti.txt")
+        if not len(stamps) or kitti.shape != (len(stamps), 4, 4) or not np.isfinite(rows).all():
+            raise AssertionError(f"trajectories: {len(stamps)} TUM rows, KITTI {kitti.shape}")
+        manifest = json.loads((out / "maps" / "manifest.json").read_text())
+        maps = manifest["maps"]
+        for m in maps:
+            if not (out / "maps" / m["file"]).is_file():
+                raise AssertionError(f"maps/{m['file']} is missing")
+            if m["n_kf"] and _png_size(out / f"map{m['map_id']}.png") != viz.MAP_SIZE:
+                raise AssertionError(f"map{m['map_id']}.png is not a {viz.MAP_SIZE} rendering")
+        if len(maps) < 2:
+            raise AssertionError(f"{len(maps)} map after the kidnap: no new map on the loss")
+        files = sorted(str(f.relative_to(out)) for f in out.rglob("*") if f.is_file())
+    result = {"argv": argv, "run_s": run_s, "poses_written": len(stamps),
+              "maps": [{"map_id": m["map_id"], "n_kf": m["n_kf"]} for m in maps],
+              "files": files, "launches": ph.launches,
+              "launches_by_shape": _by_shape(ph.launches_by_shape)}
+    print("cli_path " + json.dumps(result), flush=True)
+    print(f"cli path: mono_synthetic --scenario kidnap, {len(stamps)} poses written, "
+          f"{len(maps)} maps ({', '.join(str(m['n_kf']) for m in maps)} keyframes), "
+          f"{run_s:.1f} s on {smi}", flush=True)
     return result
 
 
@@ -1881,9 +2114,7 @@ def multihost_path_phase(torch, handoff, mm_result):
     for pid, blob in enumerate(handoff["payloads"]):
         (io_dir / f"map{pid}.pkl").write_bytes(blob)
     np.savez(io_dir / "truth.npz", poses_cw=handoff["poses_cw"], fps=handoff["fps"])
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
+    port = _free_port()
     procs = [subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), "--multihost-worker",
                                str(pid), str(port), str(io_dir)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -2048,6 +2279,9 @@ def main() -> int:
     main_launches = ph.launches
     driver_result = phase("driver_path", driver_path_phase, torch, ph, device, seq,
                           result["init_frame"], smi)
+    host_result = phase("host_path", host_path_phase, torch, ph, device, seq,
+                        result["init_frame"], result["fps_steady"], smi)
+    cli_result = phase("cli_path", cli_path_phase, torch, ph, device, smi)
     phase("split", split_phase, torch, sess, seq, i, result["chunk_s_median"])
     phase("vocab_training", vocab_training_phase, torch, sess.map)
     # the dist_ba phase's inputs from the main path: its newest keyframe's
@@ -2075,7 +2309,8 @@ def main() -> int:
         "route": "cuda",
         "source": "orbslamm_tpu_torch/csrc/hamming.cu",
         "replaces": "orbslamm_tpu/ops/pallas/hamming.py:208",
-        "launches": (main_launches + driver_result["launches"] + loop_result["launches"]
+        "launches": (main_launches + driver_result["launches"] + host_result["launches"]
+                     + cli_result["launches"] + loop_result["launches"]
                      + mm_result["launches"]
                      + bank_result["launches"] + stereo_result["launches"]
                      + rgbd_result["launches"] + mh_result["launches"]),

@@ -211,7 +211,8 @@ class MultiMapper:
         before chunk k's summaries are read (keyframe events and loss
         handling one chunk late, the reference's asynchronous delay); the
         merge pump runs at every chunk boundary. Init and loss frames take
-        the per-frame path with new-map-on-loss."""
+        the per-frame path with new-map-on-loss, and so does every frame of
+        a robot with ``use_fused`` off."""
         t = self.robots[robot_idx]
         tr = get_tracer()
         recs = []
@@ -227,7 +228,7 @@ class MultiMapper:
         i, n = 0, len(timestamps)
         while i < n:
             cs = t.chunk_size
-            if t.state == TrackingState.OK and n - i >= cs:
+            if t.state == TrackingState.OK and t.use_fused and n - i >= cs:
                 with tr.span("track", robot=t.name, chunk=cs):
                     tok = t._dispatch_chunk(images[i:i + cs], timestamps[i:i + cs])
                 i += cs

@@ -18,7 +18,10 @@ orbslamm_tpu/models/system.py).
                    Stereo and RGB-D frames take the host-sequenced path:
                    a one-keyframe bootstrap from depth, then ``_track``
                    (motion model, local map, keyframe decision) with
-                   ``MapContext.insert_keyframe``'s stage-by-stage pipeline
+                   ``MapContext.insert_keyframe``'s stage-by-stage pipeline;
+                   monocular frames take it too with ``use_fused`` off.
+                   ``defer_sync`` reads the fused step's summary one frame
+                   late
   * MonocularSession, StereoSession, RGBDSession — the single-robot facades
 """
 
@@ -514,6 +517,11 @@ class RobotTracker:
         # early-loss reset of a young map (Tracking.cc:520-528); a
         # MultiMapper turns it off and handles the loss itself
         self.auto_reset_young = True
+        self.use_fused = True  # the single-dispatch frame step (models/fused.py)
+        # defer_sync reads each frame's summary one frame late (streaming):
+        # it hides the host round trip, and keyframe events and records lag
+        # one frame
+        self.defer_sync = False
         self._frame_step = fused.make_frame_step(cfg, self.extract, self.K)
         self._ts = None  # device TrackState while the fused path is active
         self.chunk_size = 8
@@ -539,6 +547,9 @@ class RobotTracker:
         self.peak_inliers_since_kf = 0
         self.prev_inliers = 0  # collapse-gate reference (0 disables the gate)
         self._last_ref = (-1, None)  # (ref_slot, T_rel) of the latest frame
+        # defer_sync's unread summary; a reset or a map switch drops it, so
+        # the first frame tracked after it never reads the old map's frame
+        self._pending = None
 
     def switch_map(self, mapctx: MapContext):
         """Point the tracker at a (new or reset) map."""
@@ -845,6 +856,10 @@ class RobotTracker:
                                                allow_kf=not self.localization_only)
         mc.map = m
         self._ts = ts_next
+        if self.defer_sync:
+            summary, self._pending = self._pending, summary
+            if summary is None:
+                return self.cfg.tracking.min_inliers_local_map  # the warm-up frame
         s = fused.FrameSummary(*(None if x is None else x.cpu().numpy() for x in summary))
         n_inl = int(s.n_inliers)
         self.T_cw = torch.as_tensor(s.T_cw, device=self.device)
@@ -888,13 +903,14 @@ class RobotTracker:
     def process_frames(self, images, timestamps) -> list[FrameRecord]:
         """Process a batch of frames through the chunk path, chunk k+1
         dispatched before chunk k's summaries are read; initialization and
-        loss frames take the per-frame path."""
+        loss frames take the per-frame path, and so does every frame with
+        ``use_fused`` off."""
         recs: list[FrameRecord] = []
         pending = None
         i, n = 0, len(timestamps)
         while i < n:
             cs = self.chunk_size
-            if self.state == TrackingState.OK and n - i >= cs:
+            if self.state == TrackingState.OK and self.use_fused and n - i >= cs:
                 tok = self._dispatch_chunk(images[i:i + cs], timestamps[i:i + cs])
                 i += cs
                 if pending is not None:
@@ -1094,7 +1110,12 @@ class RobotTracker:
                 self.state = TrackingState.NOT_INITIALIZED
                 self._try_initialize(feats, timestamp)
         elif self.state == TrackingState.OK:
-            n_inl = self._track_fused(img, timestamp)
+            if self.use_fused:
+                n_inl = self._track_fused(img, timestamp)
+            else:  # the host-sequenced step
+                with stage("orb.extract"):
+                    feats = self.extract(img)
+                n_inl = self._track(feats, timestamp)
             if n_inl < self.cfg.tracking.min_inliers_local_map:
                 self.state = TrackingState.LOST
                 self._maybe_reset_young_map()

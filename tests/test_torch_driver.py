@@ -3,8 +3,8 @@
 CPU at test size.
 
   * ``run_robots`` of both packages on tests/test_trace.py's configuration
-    (24 frames): the same output files but the JAX package's renderings
-    (``map<id>.png``, ROADMAP step 15b), the same stage, counter and event
+    (24 frames): the same output files, the maps' renderings
+    ``map<id>.png`` included, the same stage, counter and event
     names in the Tracer's report, and the port's output directory read by
     the JAX package (``load_tum``, ``load_kitti``, ``load_session``);
   * the command line, run on a synthetic sequence exported in the TUM
@@ -98,13 +98,21 @@ def _files(run) -> list[str]:
 
 
 def test_run_robots_writes_the_jax_files(runs):
-    """The same file names as the JAX package's run but ``map<id>.png``,
-    the same frame states and timing-summary keys."""
+    """The same file names as the JAX package's run, each map's rendering
+    ``map<id>.png`` included (a PNG that PIL decodes), the same frame states
+    and timing-summary keys."""
+    from PIL import Image
+
+    from orbslamm_tpu_torch.io import viz
+
     j, t = runs["jax"], runs["port"]
-    want = [f for f in _files(j) if not f.endswith(".png")]
+    want = _files(j)
     assert _files(t) == want
     assert {"r0_frames_tum.txt", "maps/manifest.json", "map<0>_keyframes_tum.txt",
-            "maps/map_<0>.npz"} <= set(want)
+            "maps/map_<0>.npz", "map<0>.png"} <= set(want)
+    for mc in t.mm.live_maps():
+        with Image.open(t.dir / f"map{mc.map_id}.png") as img:
+            assert img.format == "PNG" and img.size == viz.MAP_SIZE
     assert t.report.states == j.report.states
     assert t.report.states["r0"].count("OK") >= N_FRAMES - 4
     s = t.report.timing_summary()["r0"]
@@ -199,24 +207,57 @@ def test_mono_tum_cli_end_to_end(tmp_path, monkeypatch):
 
 
 def test_mono_tum_module_runs_and_refuses_the_viewer(tmp_path):
-    """``python -m orbslamm_tpu_torch.examples.mono_tum``: its usage, and
-    ``--viewer`` exiting with an error that names step 15b before any
-    work."""
+    """``python -m orbslamm_tpu_torch.examples.mono_tum``: its usage, and a
+    run with ``--viewer PORT`` (the live viewer of step 15b, which the
+    command line once refused) on the first 4 frames of a synthetic TUM
+    export: the viewer answers ``/state`` while the run goes on, and the
+    run ends with its outputs written."""
+    import socket
+    import time
+    import urllib.request
+
+    from orbslamm_tpu_torch.io.synthetic import export_tum_sequence, make_sequence
+
     cmd = [sys.executable, "-m", "orbslamm_tpu_torch.examples.mono_tum"]
     out = subprocess.run(cmd + ["--help"], cwd=REPO, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0 and "--device" in out.stdout and "--two-robots" in out.stdout
-    out = subprocess.run(cmd + [str(tmp_path / "s.yaml"), str(tmp_path), "--viewer", "8080",
-                                "--device", "cpu"],
-                         cwd=REPO, capture_output=True, text=True, timeout=120)
-    assert out.returncode == 2 and "15b" in out.stderr
+    assert "--viewer" in out.stdout
+    cam = tc.CameraConfig(width=320, height=240, fx=260, fy=260, cx=160, cy=120, fps=30)
+    root = export_tum_sequence(make_sequence(n_frames=4, n_points=900, cam=cam, seed=7,
+                                             motion="forward"), tmp_path / "seq")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    proc = subprocess.Popen(cmd + [str(root / "settings.yaml"), str(root), "1", "--viewer",
+                                   str(port), "--device", "cpu", "--out", str(tmp_path / "out")],
+                            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    state = None
+    try:
+        deadline = time.monotonic() + 240
+        while state is None and proc.poll() is None and time.monotonic() < deadline:
+            try:
+                state = json.loads(urllib.request.urlopen(f"http://127.0.0.1:{port}/state",
+                                                          timeout=240).read())
+            except OSError:
+                time.sleep(0.01)
+        log = proc.communicate(timeout=240)[0]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    assert proc.returncode == 0, log
+    assert state is not None, log
+    assert [r["name"] for r in state["robots"]] == ["robot0"]
+    assert f"live viewer at http://127.0.0.1:{port}/" in log
+    assert (tmp_path / "out" / "maps" / "manifest.json").is_file()
 
 
 def test_chip_smoke_driver_phase_on_the_cpu(monkeypatch):
     """chip_smoke.driver_path_phase, gates included, on the CPU at test
     size: 16 frames written to disk by the smoke's PNG writer, decoded by
-    the native loader, run through run_robots, the files and the session
-    read back."""
+    the native loader, run through run_robots with its live viewer polled,
+    the files and the session read back."""
     sys.path.insert(0, str(REPO))
     import chip_smoke
     from orbslamm_tpu_torch.ops.cuda import hamming as tph
@@ -224,7 +265,10 @@ def test_chip_smoke_driver_phase_on_the_cpu(monkeypatch):
     monkeypatch.setattr(chip_smoke, "bench_cfg", lambda: _cfg("port"))
     seq = _sequence(16)
     ph = SimpleNamespace(launches=0, launches_by_shape=Counter())
-    res = chip_smoke.driver_path_phase(torch, ph, "cpu", seq, 2, "cpu")
+    # spans of one chunk: the viewer's pollers get two span boundaries
+    res = chip_smoke.driver_path_phase(torch, ph, "cpu", seq, 2, "cpu", span_chunks=1)
+    assert res["viewer"]["state_answers"] >= 2 and res["viewer"]["map_png_answers"] >= 2
+    assert any(f.startswith("map") and f.endswith(".png") for f in res["files"])
     assert res["frames"] == 16 and res["tracked_share"] >= 0.9 and res["ate_m"] < 0.5
     assert max(res["trajectory_file_err"].values()) <= 1e-6
     assert res["launches"] == 0 and tph.launches == 0  # the CPU runs the plain matcher

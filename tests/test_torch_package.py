@@ -60,7 +60,8 @@ def test_port_sources_import_nothing_of_jax_or_the_jax_package(path):
 
 def test_port_never_imports_jax():
     """A fresh interpreter imports the whole port (the I/O modules, the
-    driver and the TUM command line included), runs a few frames of the
+    renderings, the viewer, the driver and every command line included),
+    runs a few frames of the
     session on the CPU on a sequence from the port's own synthetic module,
     and has loaded neither jax nor any module of the JAX package."""
     script = textwrap.dedent("""
@@ -78,8 +79,10 @@ def test_port_never_imports_jax():
                                                  multihost_mapper, streams)
         from orbslamm_tpu_torch.utils import trace
         from orbslamm_tpu_torch import driver
-        from orbslamm_tpu_torch.examples import mono_tum
-        from orbslamm_tpu_torch.io import datasets, native, serialize, trajectory
+        from orbslamm_tpu_torch.examples import (
+            convert_gt_to_quaternion, mono_agz, mono_eth, mono_kitti, mono_kitti_dif_seq,
+            mono_live, mono_newcollege, mono_synthetic, mono_tum)
+        from orbslamm_tpu_torch.io import datasets, native, serialize, trajectory, viewer, viz
         from orbslamm_tpu_torch.io.synthetic import make_sequence
         from orbslamm_tpu_torch.eval import ate
         from orbslamm_tpu_torch.utils.config import (CameraConfig, CapacityConfig,
@@ -426,9 +429,29 @@ def test_paths_the_slice_lacks_are_refused():
     tr.adopt_merged_map(mc, geometry.sim3_identity(device="cpu"), remap)
     assert tr.mapctx is mc and torch.allclose(tr.T_cw, torch.as_tensor(poses[1]), atol=1e-6)
     assert tr.last_lm.tolist() == [-1, 7, 12]
-    # the driver (step 15a) runs; its live viewer is step 15b
+    # the driver (step 15a) runs, and with viewer_port (step 15b) it starts
+    # the live viewer for the run and stops it at the end: the feed, pulled
+    # while the run goes on, reads /state from it
+    import json
+    import socket
+    import urllib.error
+    import urllib.request
+
     from orbslamm_tpu_torch.driver import RobotFeed, run_robots
-    with pytest.raises(NotImplementedError, match="15b"):
-        run_robots(CFG, [RobotFeed([], "r0")], viewer_port=8080, device="cpu")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    url = f"http://127.0.0.1:{port}/state"
+    seen = []
+
+    def feed():
+        seen.append(json.loads(urllib.request.urlopen(url, timeout=60).read()))
+        yield from ()
+
+    mm, report = run_robots(CFG, [RobotFeed(feed(), "r0")], viewer_port=port, verbose=False,
+                            device="cpu")
+    assert [r["name"] for r in seen[0]["robots"]] == ["r0"] and seen[0]["merges"] == []
+    with pytest.raises(urllib.error.URLError):
+        urllib.request.urlopen(url, timeout=60)
     mm, report = run_robots(CFG, [RobotFeed([], "r0")], verbose=False, device="cpu")
     assert mm.robots[0].name == "r0" and report.timing_summary() == {}
