@@ -561,8 +561,17 @@ class RobotTracker:
     def adopt_merged_map(self, mapctx: MapContext, S_new_from_old: torch.Tensor, lm_remap):
         """After this robot's map was merged into ``mapctx``: keep tracking,
         with the pose and landmark associations carried into the merged map
-        (``S_new_from_old`` maps the old world into the merged one)."""
+        (``S_new_from_old`` maps the old world into the merged one).
+
+        Under ``defer_sync`` the unread summary of the last frame is
+        dropped: its pose is in the old world and its reference slot in the
+        old map's numbering, and a keyframe it reports lies past the slots
+        the merge transplanted. Until a summary of the merged map is read,
+        the frames record the adopted pose with no reference keyframe."""
         self._sync_from_ts()
+        if self._pending is not None:
+            self._pending = None
+            self._last_ref = (-1, None)
         self.mapctx = mapctx
         S = geo.sim3_compose(geo.sim3_from_se3(self.T_cw), geo.sim3_inv(S_new_from_old))
         self.T_cw = geo.sim3_to_se3(S)
@@ -786,6 +795,9 @@ class RobotTracker:
                 self.frames_since_kf = 0
                 self.peak_inliers_since_kf = n2
                 self.prev_inliers = 0
+                # defer_sync's unread summary is of a frame before the
+                # relocalization (a failed one: the loss latched in it)
+                self._pending = None
                 ref = mc.n_kf - 1
                 self._last_ref = (ref, _np(self.T_cw @ geo.T_inv(mc.map.kf_pose[ref])))
                 return n2

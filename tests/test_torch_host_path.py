@@ -24,8 +24,29 @@ closing off. Tolerances:
     new initialization reads the summary left pending from the old map and
     loses the new map at once; the port drops the pending summary at the
     reset, so its first record after the new initialization belongs to the
-    new map (its pose, the warm-up count).
+    new map (its pose, the warm-up count);
+  * a relocalization under ``defer_sync``: the same run on a grown map
+    (``min_kfs_for_new_map`` 4, so the map of 5 keyframes is kept) with the
+    vocabulary file's keyframe database, the frames after the blank one
+    showing the views of REVISIT frames earlier; both packages lose
+    tracking and relocalize on the map; the JAX package's
+    first frame after the relocalization reads the failed summary left
+    pending at the loss and is lost again at once; the port drops it when
+    the relocalization succeeds and records the relocalized pose;
+  * a merge under ``defer_sync`` (the port alone): r0 maps frames 0 to
+    MERGE_END - 1 with the fused step, r1 starts at frame MERGE_B0 with
+    ``defer_sync`` on, and the MultiMapper's own scan merges r1's map into
+    r0's (``min_kfs_for_merge`` 4); the summary pending at
+    ``adopt_merged_map`` (r1's old world) is dropped, and r1's first record
+    after the merge holds the adopted pose in the merged world, with no
+    reference keyframe: its camera centre lies within one frame's motion
+    (MERGE_TOL) of the next record's, the first to read a summary of the
+    merged map, where the dropped summary's lies farther than 3 x
+    MERGE_TOL from it.
 """
+
+import dataclasses
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -46,6 +67,14 @@ torch.set_num_threads(2)
 # than min_kfs_for_new_map)
 N_FRAMES, INIT_FRAME, PARITY_END, BLANK = 24, 3, 12, 12
 SCRATCH_FRAMES = 16  # the port's from-scratch runs
+# the relocalization scenario: after the blank frame the camera shows the
+# views of REVISIT frames earlier (the forward motion leaves the mapped
+# views behind: from frame BLANK + 2 on, neither package relocalizes)
+REVISIT = 4
+VOCAB = Path(__file__).resolve().parents[1] / "orbslamm_tpu" / "data" / "vocab_10x4.npz"
+# the merge scenario: r1's first frame, the frames each robot runs to, and
+# one frame's motion at the merge in the merged map's units (about 0.015)
+MERGE_B0, MERGE_END, MERGE_TOL = 6, 19, 0.015
 
 
 def _cfg(c):
@@ -59,7 +88,18 @@ def _cfg(c):
     )
 
 
+def _grown_cfg(c):
+    """_cfg with a map counted as grown (kept on a loss, scanned for a
+    merge) at 4 keyframes and the vocabulary file's keyframe database."""
+    base = _cfg(c)
+    return base.replace(
+        tracking=dataclasses.replace(base.tracking, min_kfs_for_new_map=4),
+        loop=dataclasses.replace(base.loop, min_kfs_for_merge=4),
+        vocabulary_path=str(VOCAB))
+
+
 CFG, JCFG = _cfg(tc), _cfg(jc)
+GROWN, JGROWN = _grown_cfg(tc), _grown_cfg(jc)
 SEQ = make_sequence(n_frames=N_FRAMES, n_points=900, cam=CFG.camera, seed=7, motion="forward")
 
 
@@ -67,8 +107,9 @@ def _np(tree):
     return jax.tree.map(np.array, tree)
 
 
-def _session(pkg, mode):
-    s = JaxSession(JCFG) if pkg == "jax" else MonocularSession(CFG, device="cpu")
+def _session(pkg, mode, grown=False):
+    s = (JaxSession(JGROWN if grown else JCFG) if pkg == "jax"
+         else MonocularSession(GROWN if grown else CFG, device="cpu"))
     s.enable_loop_closing = False
     s.tracker.use_fused = mode != "host"
     s.tracker.defer_sync = mode == "defer"
@@ -99,8 +140,8 @@ def _take_over(tt: RobotTracker, jt):
     tt.state = TrackingState.OK
 
 
-def _jax_boot(mode):
-    js = _session("jax", mode)
+def _jax_boot(mode, grown=False):
+    js = _session("jax", mode, grown)
     k = 0
     while js.state.name != "OK":
         js.process_frame(SEQ.images[k], float(SEQ.timestamps[k]))
@@ -130,18 +171,34 @@ def deferred():
     to PARITY_END - 1, then a blank frame on the young map, then the rest
     of the sequence. Per package and frame: (frame, state, keyframe seen,
     map id, the summary pending before the frame, the one after)."""
-    js = _jax_boot("defer")
-    port = _session("port", "defer")
+    return _deferred_logs(grown=False)
+
+
+def _deferred_logs(grown):
+    js = _jax_boot("defer", grown)
+    port = _session("port", "defer", grown)
     _take_over(port.tracker, js.tracker)
+    if grown:  # the database rows of the keyframes taken over
+        port.tracker.mapctx.update_bow_rows(list(range(port.n_kf)))
     blank = np.zeros_like(SEQ.images[0])
     logs = {"jax": [], "port": []}
     for k in range(INIT_FRAME + 1, N_FRAMES):
+        image = blank if k == BLANK else None
+        if grown and k > BLANK:  # back where the map was built
+            image = SEQ.images[k - REVISIT]
         for pkg, sess in (("jax", js), ("port", port)):
             before = sess.tracker._pending
-            rec, kf = _step(sess, k, blank if k == BLANK else None)
+            rec, kf = _step(sess, k, image)
             logs[pkg].append((k, rec.state, kf, rec.map_id, before, sess.tracker._pending,
                               rec.n_inliers, rec.T_cw))
     return logs
+
+
+@pytest.fixture(scope="module")
+def relocalized():
+    """As ``deferred``, on the grown configuration: the blank frame's loss
+    keeps the map, and the tracker relocalizes on it."""
+    return _deferred_logs(grown=True)
 
 
 def test_defer_sync_matches_jax_from_its_state(deferred):
@@ -238,3 +295,81 @@ def test_defer_sync_after_a_loss_reads_only_the_new_map(deferred):
     assert first[6] == CFG.tracking.min_inliers_local_map
     assert np.array_equal(first[7], init[7])
     assert first[5] is not None  # the frame's own summary, read at the next frame
+
+
+def test_defer_sync_after_a_relocalization_reads_only_the_new_pose(relocalized):
+    """Shown on both packages: see the module docstring."""
+    def after_blank(pkg):
+        log = [r for r in relocalized[pkg] if r[0] > BLANK]
+        lost = next(i for i, r in enumerate(log) if r[1] != "OK")
+        reloc = next(i for i, r in enumerate(log) if i > lost and r[1] == "OK")
+        return log, lost, reloc
+
+    jlog, jlost, jreloc = after_blank("jax")
+    tlog, tlost, treloc = after_blank("port")
+    assert jlog[jlost][0] == tlog[tlost][0] == BLANK + 1
+    blank_map = next(r for r in relocalized["port"] if r[0] == BLANK)[3]
+    # the map is kept (grown): every record after the blank is on it
+    assert all(r[3] == blank_map for r in tlog[:treloc + 2])
+    assert jreloc + 1 < len(jlog) and treloc + 1 < len(tlog)
+    # JAX: the summary pending at the loss (a failed frame) survives the
+    # relocalization; the next frame reads it and is lost again
+    stale = jlog[jlost][5]
+    assert stale is not None and not bool(np.asarray(stale.tracking_ok))
+    assert jlog[jreloc][5] is stale and jlog[jreloc + 1][4] is stale
+    assert jlog[jreloc + 1][1] != "OK"
+    # the port: the relocalization drops it; the next frame reads nothing
+    # and records the relocalized pose with the warm-up count
+    assert tlog[treloc][4] is not None and tlog[treloc][5] is None
+    first, reloc = tlog[treloc + 1], tlog[treloc]
+    assert first[4] is None and first[1] == "OK"
+    assert first[6] == CFG.tracking.min_inliers_local_map
+    assert np.array_equal(first[7], reloc[7])
+
+
+def _centre(T):
+    T = np.asarray(T, np.float64)
+    return -T[:3, :3].T @ T[:3, 3]
+
+
+def test_defer_sync_after_a_merge_records_the_merged_world():
+    """The port alone: see the module docstring."""
+    from orbslamm_tpu_torch.models.multimap import MultiMapper
+
+    mm = MultiMapper(GROWN, device="cpu")
+    r0, r1 = mm.add_robot("r0"), mm.add_robot("r1")
+    r1.defer_sync = True
+    for k in range(MERGE_END):
+        mm.process_frame(0, SEQ.images[k], float(SEQ.timestamps[k]))
+    assert r0.state == TrackingState.OK and r0.mapctx.n_kf >= 4
+    base = r0.mapctx.map_id
+    adopted = []
+    adopt = r1.adopt_merged_map
+
+    def spy(*args):  # the summary pending when the merge is adopted
+        adopted.append((r1.frame_id, r1._pending))
+        adopt(*args)
+
+    r1.adopt_merged_map = spy
+    recs = [mm.process_frame(1, SEQ.images[k], float(SEQ.timestamps[k]))
+            for k in range(MERGE_B0, MERGE_END)]
+    assert mm.merges and mm.merges[0][1] == base and len(adopted) == 1
+    fid, stale = adopted[0]
+    assert stale is not None and r1.mapctx.map_id == base
+    # the merge frame's record and the next (which reads nothing): on the
+    # base map, no reference keyframe of the absorbed map's numbering, the
+    # adopted pose; the frame after them reads a summary of the merged map
+    merge_rec, first = recs[fid], recs[fid + 1]
+    assert first.state == "OK" and first.map_id == base and first.ref_slot == -1
+    assert first.n_inliers == GROWN.tracking.min_inliers_local_map
+    assert merge_rec.map_id == base and merge_rec.ref_slot == -1
+    assert np.array_equal(first.T_cw, merge_rec.T_cw)
+    # the next record reads the merged map's first summary: one frame on
+    # from the adopted pose, where the dropped summary (the same frame as
+    # the adopted pose, in r1's old world) lies farther off
+    nxt = recs[fid + 2]
+    assert nxt.state == "OK" and nxt.map_id == base and nxt.ref_slot >= 0
+    step = np.linalg.norm(_centre(first.T_cw) - _centre(nxt.T_cw))
+    assert step < MERGE_TOL
+    assert np.linalg.norm(_centre(np.asarray(stale.T_cw)) - _centre(nxt.T_cw)) > 3 * MERGE_TOL
+    assert all(r.state == "OK" and r.map_id == base for r in recs[fid + 2:])

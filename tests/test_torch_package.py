@@ -43,11 +43,13 @@ def _foreign(name: str | None) -> bool:
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(REPO)) for p in [*(REPO / "orbslamm_tpu_torch").rglob("*.py"),
-                                       REPO / "chip_smoke.py"]))
+                                       REPO / "chip_smoke.py", REPO / "bench_torch.py",
+                                       REPO / "tools" / "make_vocab_torch.py"]))
 def test_port_sources_import_nothing_of_jax_or_the_jax_package(path):
     """No ``import jax``, ``from jax``, ``import orbslamm_tpu`` or
-    ``from orbslamm_tpu.`` anywhere in the port's sources or chip_smoke.py,
-    at top level or inside a function."""
+    ``from orbslamm_tpu.`` anywhere in the port's sources, chip_smoke.py,
+    bench_torch.py or tools/make_vocab_torch.py, at top level or inside a
+    function."""
     tree = ast.parse((REPO / path).read_text(), filename=path)
     bad = []
     for node in ast.walk(tree):
@@ -60,7 +62,8 @@ def test_port_sources_import_nothing_of_jax_or_the_jax_package(path):
 
 def test_port_never_imports_jax():
     """A fresh interpreter imports the whole port (the I/O modules, the
-    renderings, the viewer, the driver and every command line included),
+    renderings, the viewer, the driver, every command line, the entry
+    points, bench_torch.py and tools/make_vocab_torch.py included),
     runs a few frames of the
     session on the CPU on a sequence from the port's own synthetic module,
     and has loaded neither jax nor any module of the JAX package."""
@@ -78,7 +81,12 @@ def test_port_never_imports_jax():
         from orbslamm_tpu_torch.parallel import (dist_ba, multihost, multihost_demo,
                                                  multihost_mapper, streams)
         from orbslamm_tpu_torch.utils import trace
-        from orbslamm_tpu_torch import driver
+        from orbslamm_tpu_torch import driver, entry
+        import importlib.util
+        for name, path in (("bench_torch", "bench_torch.py"),
+                           ("make_vocab_torch", "tools/make_vocab_torch.py")):
+            spec = importlib.util.spec_from_file_location(name, path)
+            spec.loader.exec_module(importlib.util.module_from_spec(spec))
         from orbslamm_tpu_torch.examples import (
             convert_gt_to_quaternion, mono_agz, mono_eth, mono_kitti, mono_kitti_dif_seq,
             mono_live, mono_newcollege, mono_synthetic, mono_tum)
