@@ -9,7 +9,10 @@ non-zero and no phase failure is caught:
    and a ``packages`` line: whether ``cv2``, ``PIL`` and ``matplotlib``
    import, and whether ``g++`` and zlib's header (the native frame
    loader's build) are found;
-2. building the hand-written matcher kernel (csrc/hamming.cu) with nvcc;
+2. building the hand-written kernels with nvcc, one process per source, all
+   started together: the matcher (csrc/hamming.cu) and the sorted segment
+   sum (csrc/segsum.cu), through which every float segment sum of a BA,
+   pose-graph or global-BA solve on the card runs;
 3. the kernel against its plain torch version on the card: window mode at
    the main path's shapes 2048x2048 (motion model), 2048x4096 (local map)
    and 2048x8192 (fuse), epipolar mode at 2048x2048 (triangulation), a
@@ -58,14 +61,16 @@ non-zero and no phase failure is caught:
    driver's next span boundary) and the ms of one render of the final map;
 4c. the host path: the main path's configuration and sequence, frames 0 to
    its init frame + HOST_AFTER_INIT, through ``MonocularSession(cfg,
-   device="cuda")`` frame by frame, three times: the fused step (the
-   baseline of the other two), ``tracker.use_fused`` off (the
+   device="cuda")`` frame by frame: frames 0 to the init frame once (the
+   switches act only on tracked frames), then the frames after it three
+   times, each from its own copy of the initialized session: the fused
+   step (the baseline of the other two), ``tracker.use_fused`` off (the
    host-sequenced tracking step and keyframe pipeline), and
    ``tracker.defer_sync`` on (the fused step's summary read one frame
    late); asserts for each the init at the main path's frame, >= 90% of
    the frames after it tracked, a Sim3 ATE below 0.5 m and >= 2 kernel
    launches per tracked frame; prints the fps after init of each beside
-   the main path's steady fps;
+   the main path's steady fps, and the bootstrap's and the copies' time;
 4d. the command-line path: ``orbslamm_tpu_torch.examples.mono_synthetic``'s
    ``main`` in this process with ``--scenario kidnap --device cuda --out
    <tmp>`` (60 frames at 320x240, the camera moved elsewhere half way);
@@ -129,7 +134,30 @@ non-zero and no phase failure is caught:
    frames to r1; asserts for each robot >= 90% tracked frames, a merge,
    both robots on the base map, a merged ATE (both robots' frames under one
    Sim3) below 0.6 m, a new map on loss with the merged map kept, and >= 2
-   kernel launches per tracked frame, and times the merge events.
+   kernel launches per tracked frame, and times the merge events; prints a
+   ``fingerprint multimap`` line (``map_fingerprint``);
+8b. the segment-sum kernel against its plain version (``index_add_`` in edge
+   order) on the card, at the edge lists the paths give it: the multi-map
+   path's first merge (its global-BA slice's camera and point segments at
+   widths 36, 6, 9, 3 and 1, its essential graph at 49 and 7), the loop
+   path's essential graph (49 and 7), the dist_ba window's (camera, point)
+   pairs (18, almost all of the segments empty), and the edge cases: an
+   empty segment among full ones, one segment holding every edge, every
+   edge invalid (all on landmark 0 with zero values, as the solves' zero
+   weights make them), each at every width 1, 3, 6, 7, 9, 18, 36 and 49.
+   Tolerance: within 2 (L - 1) 2^-24 sum |v| per segment of L edges (two
+   float32 sums of the same values in different orders), and two launches
+   bitwise equal. At three shapes (``segsum_vs_plain`` lines): the call's
+   median time from CUDA events, the kernel's device time from
+   torch.profiler (which must show no device work but the kernel's two
+   passes, and counts only a session that recorded both passes of every
+   call) and from CUDA events around a CUDA graph of 20 calls, the bound
+   (bytes) and the replaced ``zeros`` + ``index_add_``;
+8c. repeat: the multi-map path's first merge replayed twice from clones of
+   its arguments through ``MultiMapper._do_merge_inner`` (``merge_maps``,
+   the essential-graph correction, the seam fuse, the global-BA slice) on a
+   mapper with no robots; every ``MapState`` field, the BoW rows and the
+   slice's cost must be bitwise equal between the two replays;
 
 9. the bank path: bench_torch.py's phase 2, ``bench_torch.bench_multi``
    (bench.py's scenario and warm-ups), through the
@@ -146,7 +174,7 @@ non-zero and no phase failure is caught:
    tracked frame; prints bench.py's ``multi`` keys (fps per stream at the
    median, mean and p90 of the timed chunks, the slowest chunk, merged,
    merged ATE, states) and times the bank's, merge, loop and global-BA
-   stages per call.
+   stages per call; prints a ``fingerprint bank`` line.
 
 10. the stereo path: ``StereoSession(cfg, device="cuda")`` at ORB-SLAM2's
     KITTI stereo setting (examples/settings/KITTI00-02.yaml read with the
@@ -201,10 +229,20 @@ non-zero and no phase failure is caught:
     as many exchanges, a map imported and merged, and a merged keyframe ATE
     below 0.6 m; prints the bytes shipped, ms per exchange and the merge
     beside the in-process one. The chip host has one card: no multi-card
-    or NCCL path is exercised (none exists; processes talk over gloo).
+    or NCCL path is exercised (none exists; processes talk over gloo). Each
+    worker hashes its live maps (``map_fingerprint``); the phase prints a
+    ``fingerprint multihost`` line over both.
 
-Each phase prints its wall time. The last line is the JSON contract line;
-the line before it holds the kernels' record. Needs the port package and
+Every phase that solves a BA, pose graph or global BA on the card (loop,
+multi-map, bank, stereo, dist_ba, multihost, repeat) must have launched the
+segment-sum kernel; each phase's count is set to 0 just before it and read
+just after (the multihost workers report their own). A ``fingerprint`` line
+is a sha1 of every live map's ``MapState`` fields, the merges' keyframes,
+the merge's frame and the follower replay count, with map ids left out
+(they count across the process): two runs of one tree print the same.
+
+Each phase prints its wall time and its segment-sum launches. The last line
+is the JSON contract line; the line before it holds the kernels' record. Needs the port package and
 bench_torch.py beside it (the package's own config, synthetic-sequence and
 ATE modules included) and the vocabulary file
 ``orbslamm_tpu/data/vocab_10x4.npz``, which it reads as data; it imports
@@ -213,6 +251,7 @@ nothing of jax or of the JAX package.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import socket
 import subprocess
@@ -278,6 +317,16 @@ HBM_BYTES_PER_S = 3.35e12
 BIT_OPS_PER_S = 8 * INT8_OPS_PER_S
 # the matcher's kernels (csrc/hamming.cu), as the profiler names them
 MATCHER_KERNELS = ("hamming_tiles_kernel", "hamming_finalize_kernel")
+# the segment sum's kernel (csrc/segsum.cu, both passes), as the profiler names it
+SEGSUM_KERNELS = ("group_sum_kernel",)
+# the row widths the solves sum: 1, 3, 6, 9 and 36 in the BAs (weights,
+# gradients, blocks), 18 in the dense BA's camera-point blocks, 7 and 49 in
+# the Sim3 pose graph
+SEGSUM_WIDTHS = (1, 3, 6, 7, 9, 18, 36, 49)
+# the phases that solve a BA, pose graph or global BA on the card: each must
+# launch the segment-sum kernel
+SOLVING_PHASES = ("loop_path", "multimap_path", "repeat", "bank_path", "stereo_path", "dist_ba",
+                  "multihost_path")
 # the port's stage names (orbslamm_tpu_torch.utils.trace.stage) start so
 STAGE_PREFIXES = ("orb", "track", "ba", "matching", "mapping", "bow", "loop", "gba", "reloc")
 # the keyframe-rate events of the loop path, timed per call
@@ -940,12 +989,30 @@ def driver_path_phase(torch, ph, device, seq, init_frame, smi, span_chunks=4):
     return result
 
 
+def fork_session(sess):
+    """An independent copy of a ``MonocularSession``: tensors, generator and
+    frame records copied, its map context under a new map id (the records'
+    poses resolve through the map registry by id, which would otherwise
+    name the original's map)."""
+    import copy
+
+    twin = copy.deepcopy(sess)
+    mc = twin.tracker.mapctx
+    old = mc.map_id
+    mc.renew_id()
+    for f in twin.frames:
+        if f.map_id == old:
+            f.map_id = mc.map_id
+    return twin
+
+
 def host_path_phase(torch, ph, device, seq, init_frame, main_fps, smi,
                     after_init=HOST_AFTER_INIT):
     """The main path's frames 0 to its init frame + ``after_init`` through
-    ``MonocularSession`` frame by frame: the fused step, then with
-    ``use_fused`` off (the host-sequenced tracking step), then with
-    ``defer_sync`` on (see the module docstring, 4c)."""
+    ``MonocularSession`` frame by frame: frames 0 to the init frame once,
+    then from a copy of that session each the fused step, ``use_fused`` off
+    (the host-sequenced tracking step) and ``defer_sync`` on (see the
+    module docstring, 4c)."""
     from orbslamm_tpu_torch.eval.ate import ate_from_poses
     from orbslamm_tpu_torch.models.system import MonocularSession, resolve_frame_poses
 
@@ -955,19 +1022,29 @@ def host_path_phase(torch, ph, device, seq, init_frame, main_fps, smi,
 
     cfg = bench_cfg()
     n = min(len(seq.timestamps), init_frame + after_init + 1)
-    runs = {}
+    # the switches act only on tracked frames: one bootstrap serves the
+    # three runs, each going on from its own copy of the initialized session
+    ph.launches = 0
+    t0 = time.perf_counter()
+    boot = MonocularSession(cfg, device=device)
+    boot.enable_loop_closing = False
+    for k in range(init_frame + 1):
+        boot.process_frame(seq.images[k], float(seq.timestamps[k]))
+    sync()
+    boot_s, boot_launches = time.perf_counter() - t0, ph.launches
+    runs, copy_s = {}, []
     for mode in ("fused", "host", "deferred"):
-        sess = MonocularSession(cfg, device=device)
-        sess.enable_loop_closing = False
+        t0 = time.perf_counter()
+        sess = fork_session(boot)
+        sync()
+        copy_s.append(time.perf_counter() - t0)
         sess.tracker.use_fused = mode != "host"
         sess.tracker.defer_sync = mode == "deferred"
         ph.launches = 0  # counts from here on are this run's
         ph.launches_by_shape.clear()
+        sync()
         t0 = time.perf_counter()
-        for k in range(n):
-            if k == init_frame + 1:
-                sync()
-                t0 = time.perf_counter()
+        for k in range(init_frame + 1, n):
             sess.process_frame(seq.images[k], float(seq.timestamps[k]))
         sync()
         stream_s = time.perf_counter() - t0
@@ -1001,13 +1078,18 @@ def host_path_phase(torch, ph, device, seq, init_frame, main_fps, smi,
             raise AssertionError(f"{mode}: {ph.launches} kernel launches for {n_ok} tracked "
                                  "frames")
     result = {"frames": n, "runs": runs, "main_path_fps_steady": main_fps,
-              "launches": sum(r["launches"] for r in runs.values())}
+              "bootstrap_frames": init_frame + 1, "bootstrap_s": boot_s,
+              "bootstrap_launches": boot_launches, "copy_s": copy_s,
+              # the two bootstraps that the copies replace, less the copies
+              "bootstrap_cut_saves_s": 2 * boot_s - sum(copy_s),
+              "launches": boot_launches + sum(r["launches"] for r in runs.values())}
     print("host_path " + json.dumps(result), flush=True)
     print(f"host path: fps after init frame by frame {runs['fused']['fps_after_init']:.2f} "
           f"fused, {runs['host']['fps_after_init']:.2f} with use_fused off, "
           f"{runs['deferred']['fps_after_init']:.2f} with defer_sync on; the main path's chunks "
           f"{main_fps:.2f} fps steady; ATE {runs['fused']['ate_m']:.4f} / "
-          f"{runs['host']['ate_m']:.4f} / {runs['deferred']['ate_m']:.4f} m on {smi}",
+          f"{runs['host']['ate_m']:.4f} / {runs['deferred']['ate_m']:.4f} m; bootstrap of "
+          f"{init_frame + 1} frames {boot_s:.2f} s once, copies {sum(copy_s):.3f} s on {smi}",
           flush=True)
     return result
 
@@ -1352,13 +1434,16 @@ def loop_path_phase(torch, ph, device):
     streaming then goes on and runs the overlapped global-BA slices at chunk
     boundaries. Last, three blank frames lose tracking and outbound frames
     must relocalize it within 3 frames. Keyframe-rate events are timed per
-    call (StageTimer on the LOOP_STAGES only)."""
+    call (StageTimer on the LOOP_STAGES only). Returns (result, split, the
+    loop event's essential graph: its PoseGraphProblem, for the segment-sum
+    check)."""
     from orbslamm_tpu_torch.eval.ate import ate_from_poses
     from orbslamm_tpu_torch.io.synthetic import make_sequence
     from orbslamm_tpu_torch.models import loop_closing as lc
     from orbslamm_tpu_torch.models.system import (
         MonocularSession, TrackingState, resolve_frame_poses,
     )
+    from orbslamm_tpu_torch.ops import ba
     from orbslamm_tpu_torch.utils.trace import StageTimer
 
     cfg = loop_cfg()
@@ -1396,7 +1481,8 @@ def loop_path_phase(torch, ph, device):
                 cands = _revisit_candidates(torch, cfg, mc.map, slot)
                 detected = len(sess.loops_closed)
                 pose_before = mc.map.kf_pose[slot].clone()
-                closed = mc.verify_and_correct_loop(slot, cands, sess.tracker.generator)
+                with FirstCall(ba, "pose_graph_optimize") as pose_graph:
+                    closed = mc.verify_and_correct_loop(slot, cands, sess.tracker.generator)
                 if closed:
                     # the correction moved the map under the camera, as a
                     # loop closed inside a chunk does
@@ -1459,7 +1545,7 @@ def loop_path_phase(torch, ph, device):
         raise AssertionError(f"no relocalization within 3 frames: {reloc}")
     if launches < 2 * n_ok:
         raise AssertionError(f"{launches} kernel launches for {n_ok} tracked frames")
-    return result, split
+    return result, split, pose_graph.arg
 
 
 def vocab_training_phase(torch, m):
@@ -1504,6 +1590,254 @@ def _stream_span(mm, k, seq, lo, hi):
     return time.perf_counter() - t0
 
 
+class FirstCall:
+    """Inside a ``with`` block, keeps a clone of the tensors of the first
+    call's first argument to ``module.name`` (a problem tuple); the call
+    itself runs as it is."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.arg = None
+        self._real = None
+
+    def __enter__(self):
+        real = self._real = getattr(self.module, self.name)
+
+        def spy(*args, **kw):
+            if self.arg is None:
+                p = args[0]
+                self.arg = type(p)(*(None if x is None else x.clone() for x in p))
+            return real(*args, **kw)
+
+        setattr(self.module, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self._real)
+
+
+def clone_map(m):
+    return type(m)(*(x.clone() for x in m))
+
+
+def fork_context(mc):
+    """A shallow copy of a ``MapContext`` with its own copies of the map and
+    the BoW rows: what ``MultiMapper._do_merge_inner`` replaces on it."""
+    import copy
+
+    twin = copy.copy(mc)
+    twin.map = clone_map(mc.map)
+    twin.kf_bow = None if mc.kf_bow is None else mc.kf_bow.clone()
+    return twin
+
+
+def map_fingerprint(maps, merges, merge_frame, replays) -> str:
+    """sha1 over every ``MapState`` field of ``maps`` (the live maps in
+    creation order), each merge's keyframes (absorbed and base slot), the
+    merge's frame and the follower replay count. Map ids are left out: they
+    count across the process."""
+    h = hashlib.sha1()
+    for m in maps:
+        for x in m:
+            h.update(x.detach().cpu().contiguous().numpy().tobytes())
+    h.update(json.dumps({"merges": [[int(x[2]), int(x[3])] for x in merges],
+                         "frame": merge_frame, "replays": replays}).encode())
+    return h.hexdigest()
+
+
+def _fingerprint_line(torch, kind, maps, merges, merge_frame, replays):
+    """Prints and returns ({"fingerprint": hex, "fingerprint_s": s})."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fp = map_fingerprint(maps, merges, merge_frame, replays)
+    out = {"fingerprint": fp, "fingerprint_s": time.perf_counter() - t0}
+    print(f"fingerprint {kind} {fp}", flush=True)
+    return out
+
+
+def segsum_cases(torch, ss, device, sources):
+    """(name, plan, values) of the segment-sum check: each edge list of
+    ``sources`` ({name: (ids, n, widths)}) at its widths, and the edge
+    cases at every width of SEGSUM_WIDTHS on the merged map's point edge
+    list: every odd segment empty, one segment holding every edge, every
+    edge invalid (all on landmark 0 with zero values). Values are seeded
+    normal float32."""
+    rng = np.random.default_rng(0)
+    ids, n = sources["merge_gba_point"][:2]
+    lists = dict(sources)
+    lists["empty_segments"] = (2 * (ids // 2), n, SEGSUM_WIDTHS)
+    lists["one_segment"] = (torch.full_like(ids, 17), n, SEGSUM_WIDTHS)
+    lists["all_invalid"] = (torch.zeros_like(ids), n, SEGSUM_WIDTHS)
+    cases = []
+    for name, (idx, m, widths) in lists.items():
+        plan = ss.segment_plan(idx.to(device), m)
+        for w in widths:
+            shape = {36: (6, 6), 49: (7, 7), 9: (3, 3), 18: (6, 3), 1: ()}.get(w, (w,))
+            v = rng.normal(size=(idx.shape[0],) + shape).astype(np.float32)
+            if name == "all_invalid":
+                v[:] = 0.0
+            cases.append((f"{name}_{w}", plan, torch.as_tensor(v, device=device)))
+    return cases
+
+
+def segsum_bound_us(vals, n) -> tuple[float, int]:
+    """The least time of one segment sum: the values and their int32
+    segment ids read once and the [n, width] sums written once, at the
+    memory rate (one add per value, far below any compute limit). Returns
+    (us, bytes)."""
+    E = vals.shape[0]
+    nbytes = int(vals.nbytes) + 4 * E + 4 * n * (int(vals[0].numel()) if E else 0)
+    return nbytes / HBM_BYTES_PER_S * 1e6, nbytes
+
+
+def is_segsum(name: str) -> bool:
+    return any(k in name for k in SEGSUM_KERNELS)
+
+
+def graph_us(torch, fn, reps=20, replays=5) -> float:
+    """Device time of one call of ``fn``: CUDA events around the replay of a
+    CUDA graph that holds ``reps`` calls, so no host work lies between the
+    launches; the median of ``replays`` replays, per call, in us."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm, outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times)) * 1e3 / reps
+
+
+def segsum_profile_us(torch, fn, reps=20):
+    """torch.profiler over ``reps`` calls of the segment sum (after a warm
+    call): the device time a call of its kernel's two passes, from a session
+    that recorded both passes of every call (at most 3 sessions; a session
+    on the card now and then drops kernel events), else None. Returns (us or
+    None, kernel events recorded, names of any other device operations)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+        mine = [e.time_range.elapsed_us() for e in ops if is_segsum(e.name)]
+        foreign = sorted({e.name for e in ops if not is_segsum(e.name)})
+        if len(mine) >= 2 * reps:
+            return sum(mine) / reps, len(mine), foreign
+    return None, len(mine), foreign
+
+
+SEGSUM_TIMED = ("merge_gba_cam_36", "merge_gba_point_3", "loop_pose_graph_i_7")
+
+
+def segsum_kernel_phase(torch, ss, device, sources):
+    """The segment-sum kernel against its plain version on the card (see the
+    module docstring, 8b). Returns (max_abs_err, rows)."""
+    err, rows = 0.0, []
+    for name, plan, vals in segsum_cases(torch, ss, device, sources):
+        a = ss.segment_sum(plan, vals)
+        b = ss.segment_sum(plan, vals)
+        want = ss.segment_sum_ref(plan, vals)
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            raise AssertionError(f"segsum {name}: two launches differ")
+        flat = vals.reshape(vals.shape[0], -1).double()
+        abs_sum = torch.zeros((plan.n, flat.shape[1]), dtype=torch.float64,
+                              device=vals.device).index_add_(0, plan.idx, flat.abs())
+        L = (plan.end - plan.start).double()[:, None]
+        bound = 2.0 * torch.clamp_min(L - 1.0, 0.0) * 2.0 ** -24 * abs_sum
+        d = (a.double() - want.double()).reshape(plan.n, -1).abs()
+        if bool((d > bound).any()):
+            raise AssertionError(f"segsum {name}: off by {float(d.max())}, beyond "
+                                 f"2 (L - 1) 2^-24 sum |v|")
+        if name.startswith("all_invalid") and bool((a != 0).any()):
+            raise AssertionError(f"segsum {name}: a zero edge list summed to nonzero")
+        e = float(d.max()) if d.numel() else 0.0
+        err = max(err, e)
+        lens = (plan.end - plan.start)
+        row = {"case": name, "edges": int(vals.shape[0]), "segments": plan.n,
+               "width": int(vals[0].numel()), "longest_segment": int(lens.max()),
+               "empty_segments": int((lens == 0).sum()), "max_abs_err": e,
+               "bound_max": float(bound.max()) if bound.numel() else 0.0,
+               "bound_share": float((d / bound.clamp_min(1e-300)).max()) if d.numel() else 0.0}
+        if name in SEGSUM_TIMED:
+            call = lambda plan=plan, vals=vals: ss.segment_sum(plan, vals)  # noqa: E731
+            shape = (plan.n,) + tuple(vals.shape[1:])
+            row["call_us"] = _median_ms(torch, call) * 1e3
+            row["plain_ms"] = _median_ms(torch, lambda: ss.segment_sum_ref(plan, vals))
+            row["device_us"], row["profiler_events"], foreign = segsum_profile_us(torch, call)
+            if foreign:
+                raise AssertionError(f"segment_sum launched more than its kernel: {foreign}")
+            row["graph_us"] = graph_us(torch, call)
+            row["bound_us"], row["bytes"] = segsum_bound_us(vals, plan.n)
+            row["bound_by"] = "bytes"
+            # the replaced scatter: index_add_ into a zeroed buffer
+            row["library_us"] = _median_ms(torch, lambda: torch.zeros(
+                shape, device=vals.device).index_add_(0, plan.idx, vals)) * 1e3
+        rows.append(row)
+        print("segsum_vs_plain " + json.dumps(row), flush=True)
+    return err, rows
+
+
+def repeat_phase(torch, device, handoff, smi):
+    """The multi-map path's first merge replayed twice from clones of its
+    arguments through ``MultiMapper._do_merge_inner``, on a copy of the
+    path's mapper with no robots (see the module docstring, 8c)."""
+    import copy
+
+    from orbslamm_tpu_torch.models.map_state import MapState
+
+    mm = handoff["mm"]
+    A, B, S_cam, slot_b, slot_a = handoff["merge_args"]
+    outs, secs = [], []
+    for _ in range(2):
+        shell = copy.copy(mm)
+        shell.robots, shell.merges, shell.merge_evictions = [], [], []
+        a, b = fork_context(A), fork_context(B)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        shell._do_merge_inner(a, b, S_cam.clone(), slot_b, slot_a)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        outs.append((a.map, a.kf_bow, a._gba_last_cost, a.n_kf, shell.merge_evictions))
+    (m1, bow1, c1, n1, ev1), (m2, bow2, c2, n2, ev2) = outs
+    differ = [k for k, x, y in zip(MapState._fields, m1, m2) if not torch.equal(x, y)]
+    if not torch.equal(bow1, bow2):
+        differ.append("kf_bow")
+    if (c1, n1, ev1) != (c2, n2, ev2):
+        differ.append("cost, keyframes or evictions")
+    result = {"replays": 2, "seconds": secs, "slots": [slot_b, slot_a], "keyframes": n1,
+              "gba_cost": c1, "evicted": ev1, "differing": differ,
+              "fingerprints": [map_fingerprint([m], [], None, None) for m in (m1, m2)]}
+    print("repeat " + json.dumps(result), flush=True)
+    print(f"repeat: the first merge replayed twice, {secs[0]:.2f} and {secs[1]:.2f} s, "
+          f"{'bitwise equal' if not differ else 'differing in ' + str(differ)} on {smi}",
+          flush=True)
+    if differ:
+        raise AssertionError(f"repeat: two replays of one merge differ in {differ}")
+    return result
+
+
 def multimap_path_phase(torch, ph, device):
     """The multi-map path: bench.py's two-robot scenario (bench_multi) on
     bench.py's configuration with its vocabulary file. Two robots on one
@@ -1518,11 +1852,14 @@ def multimap_path_phase(torch, ph, device):
     the end of the halves); then the scan pipeline is flushed. Last, three blank frames to
     r1 must give it a brand-new map while the merged map stays live with
     all its keyframes. Merge events are timed per call (StageTimer on
-    MM_STAGES)."""
+    MM_STAGES). The first merge's arguments are kept (cloned) for the
+    repeat phase, and its essential graph and global-BA problem for the
+    segment-sum check."""
     from orbslamm_tpu_torch.eval.ate import ate_rmse
     from orbslamm_tpu_torch.io.synthetic import make_sequence
     from orbslamm_tpu_torch.models.multimap import MultiMapper
     from orbslamm_tpu_torch.models.system import TrackingState, resolve_frame_poses
+    from orbslamm_tpu_torch.ops import ba
     from orbslamm_tpu_torch.parallel.multihost_mapper import HostMapperBridge
     from orbslamm_tpu_torch.utils.trace import StageTimer
 
@@ -1536,16 +1873,24 @@ def multimap_path_phase(torch, ph, device):
         mm = MultiMapper(cfg, device=device)
         robots = [mm.add_robot(name) for name in MM_NAMES]
         # each robot's map as it stands when the first merge is applied: the
-        # multihost phase starts its two processes from these
-        snap = []
+        # multihost phase starts its two processes from these; the repeat
+        # phase replays the merge from copies of its arguments
+        snap, first_merge = [], {}
         do_merge = mm._do_merge
 
         def snapshot_then_merge(*args):
-            if not snap:
-                snap.extend((t.mapctx.map_id, t.mapctx.n_kf, type(t.mapctx.map)(
-                    *(x.clone() for x in t.mapctx.map)), t.mapctx.kf_bow.clone())
-                    for t in robots)
-            return do_merge(*args)
+            if snap:
+                return do_merge(*args)
+            snap.extend((t.mapctx.map_id, t.mapctx.n_kf, clone_map(t.mapctx.map),
+                         t.mapctx.kf_bow.clone()) for t in robots)
+            mcA, mcB, S_cam, slot_b, slot_a = args
+            first_merge["args"] = (fork_context(mcA), fork_context(mcB),
+                                   torch.as_tensor(S_cam).clone(), slot_b, slot_a)
+            with FirstCall(ba, "pose_graph_optimize") as pose_graph, \
+                    FirstCall(ba, "bundle_adjust_cg") as gba:
+                out = do_merge(*args)
+            first_merge.update(pose_graph=pose_graph.arg, gba=gba.arg)
+            return out
 
         mm._do_merge = snapshot_then_merge
         offs = []
@@ -1631,6 +1976,8 @@ def multimap_path_phase(torch, ph, device):
             loss.append(mm.process_frame(1, np.zeros_like(seq.images[0]), t_next).state)
         torch.cuda.synchronize()
         maps_after = [(m.map_id, m.n_kf) for m in mm.live_maps()]
+    fingerprint = _fingerprint_line(torch, "multimap", [m.map for m in mm.live_maps()], mm.merges,
+                                    None if merged_at is None else merged_at["frame"], None)
     chunks = [s for k in range(2) for s in span_s[k][1:]]  # each robot's first span warms up
     result = {
         "sequence": {"motion": "strafe", "seed": MM_SEED, "frames": MM_FRAMES, "half": MM_HALF,
@@ -1647,7 +1994,7 @@ def multimap_path_phase(torch, ph, device):
         "fps_per_stream_p90": CHUNK / float(np.percentile(chunks, 90)),
         "chunk_s_median": float(np.median(chunks)), "chunk_s_max": float(np.max(chunks)),
         "spans": [len(s) for s in span_s], "flush_s": flush_s,
-        "launches": launches, "launches_by_shape": by_shape,
+        "launches": launches, "launches_by_shape": by_shape, **fingerprint,
     }
     split = {k: {"calls": timer.calls[k], "ms": v * 1e3, "ms_per_call": v * 1e3 / timer.calls[k]}
              for k, v in sorted(timer.seconds.items())}
@@ -1676,7 +2023,8 @@ def multimap_path_phase(torch, ph, device):
     if launches < 2 * n_ok:
         raise AssertionError(f"{launches} kernel launches for {n_ok} tracked frames")
     handoff = {"merged_map": base.map, "payloads": payloads, "poses_cw": seq.poses_cw,
-               "fps": cfg.camera.fps}
+               "fps": cfg.camera.fps, "mm": mm, "merge_args": first_merge["args"],
+               "merge_pose_graph": first_merge["pose_graph"], "merge_gba": first_merge["gba"]}
     return result, split, handoff
 
 
@@ -1712,6 +2060,8 @@ def _bank_run(torch, ph, device, cfg, seed):
     frames0, bank, chunk_s, merged_at = (run[k] for k in ("frames0", "bank", "chunk_times",
                                                           "merged_at"))
     merged = bool(mm.merges)
+    fingerprint = _fingerprint_line(torch, "bank", [m.map for m in mm.live_maps()], mm.merges,
+                                    merged_at, bank.count("bank_replay_kf"))
     base_id = robots[0].mapctx.map_id  # bench.py's base map
     est_c, gt_c, tags = [], [], []  # tags: (robot, stream frame)
     for k, t in enumerate(robots):
@@ -1757,7 +2107,7 @@ def _bank_run(torch, ph, device, cfg, seed):
         "bank_owner_promoted": bank.count("bank_owner_promoted"),
         "sync_points": bank.sync_points, "mesh": repr(bank.mesh),
         "slot_devices": [str(d) for d in bank._devs],
-        "launches": launches, "launches_by_shape": by_shape,
+        "launches": launches, "launches_by_shape": by_shape, **fingerprint,
     }
     split = {k: {"calls": timer.calls[k], "ms": v * 1e3, "ms_per_call": v * 1e3 / timer.calls[k]}
              for k, v in sorted(timer.seconds.items())}
@@ -2272,11 +2622,14 @@ def multihost_path_phase(torch, handoff, mm_result):
     if any(p.returncode != 0 for p in procs):
         raise AssertionError(f"multihost path: worker exit codes {[p.returncode for p in procs]}")
     reports = [json.loads((io_dir / f"worker{pid}.json").read_text()) for pid in range(2)]
+    fingerprint = hashlib.sha1(" ".join(r["fingerprint"] for r in reports).encode()).hexdigest()
+    print(f"fingerprint multihost {fingerprint}", flush=True)
     result = {
         "processes": 2, "rounds_max": MH_ROUNDS,
         "payload_bytes": [len(b) for b in handoff["payloads"]],
-        "workers": reports,
+        "workers": reports, "fingerprint": fingerprint,
         "launches": sum(r["launches"] for r in reports),
+        "segsum_launches": sum(r["segsum_launches"] for r in reports),
         "in_process_merge": {"merges": mm_result["merges"],
                              "merged_map": mm_result["merged_map"],
                              "merged_ate_m": mm_result["merged_ate_m"]},
@@ -2313,12 +2666,14 @@ def multihost_worker(argv) -> int:
     from orbslamm_tpu_torch.models.multimap import MultiMapper
     from orbslamm_tpu_torch.ops import bow
     from orbslamm_tpu_torch.ops.cuda import hamming as ph
+    from orbslamm_tpu_torch.ops.cuda import segsum as ss
     from orbslamm_tpu_torch.parallel import multihost as mh
     from orbslamm_tpu_torch.parallel.multihost_mapper import HostMapperBridge
     from orbslamm_tpu_torch.utils.trace import StageTimer
 
     device = "cuda"
     ph.build()
+    ss.build()
     t0 = time.perf_counter()
     mh.initialize(f"localhost:{port}", 2, pid, timeout_s=120)
     voc_np = (convert.vocabulary_to_numpy(bow.load_vocabulary_npz(VOCAB, device="cpu"))
@@ -2340,6 +2695,7 @@ def multihost_worker(argv) -> int:
     # features, their BoW rows): above the bridge's default 8 MB bound
     bridge = HostMapperBridge(mm, payload_max=1 << 25)
     ph.launches = 0  # counts from here on are this worker's share of the path
+    ss.launches = 0
     exchanges, merged = 0, False
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2362,8 +2718,11 @@ def multihost_worker(argv) -> int:
         "events": [e for e, _ in bridge.events],
         "shipped_bytes": len(bridge._pack_map(mc)) if mc.map_id in bridge._shipped else 0,
         "merges": [list(x) for x in mm.merges], "launches": ph.launches,
+        "segsum_launches": ss.launches,
         "stages": {k: {"calls": timer.calls[k], "ms": v * 1e3}
                    for k, v in sorted(timer.seconds.items())},
+        "fingerprint": map_fingerprint([m.map for m in mm.live_maps()], mm.merges, exchanges,
+                                       None),
     }
     if mm.merges:
         base = next(m for m in mm.maps if m.map_id == mm.merges[0][1])
@@ -2378,6 +2737,46 @@ def multihost_worker(argv) -> int:
     print(f"worker {pid}: {json.dumps(report)}", flush=True)
     torch.distributed.destroy_process_group()
     return 0
+
+
+def build_kernels(*modules):
+    """Each kernel module's ``build()`` in a thread of its own, so that one
+    nvcc process per source runs at once; raises the first failure."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(modules)) as pool:
+        for f in [pool.submit(m.build) for m in modules]:
+            f.result()
+
+
+def segsum_entry(rows, err, paths) -> dict:
+    """The kernels line's entry of the segment sum: its numbers at the merged
+    map's global-BA camera segments (36 floats an edge), the other timed
+    shapes under ``timed``, and its launches by path."""
+    timed = [r for r in rows if "call_us" in r]
+    head = next(r for r in timed if r["case"] == SEGSUM_TIMED[0])
+    return {
+        "name": "segsum",
+        "route": "cuda",
+        "source": "orbslamm_tpu_torch/csrc/segsum.cu",
+        "replaces": "orbslamm_tpu/ops/ba.py:898 (_make_sorted_segsum: XLA code, not a Pallas "
+                    "kernel)",
+        "launches": sum(paths.values()),
+        "launches_by_path": paths,
+        "max_abs_err": err,
+        "ms": head["call_us"] / 1e3,
+        "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_us"] / 1e3,
+        "bound_by": head["bound_by"],
+        "library_ms": head["library_us"] / 1e3,
+        "device_us": head["device_us"],
+        "bound_us": head["bound_us"],
+        "library_us": head["library_us"],
+        "graph_us": head["graph_us"],
+        "timed": [{k: r[k] for k in ("case", "edges", "segments", "width", "call_us", "device_us",
+                                     "graph_us", "plain_ms", "bound_us", "library_us")}
+                  for r in timed],
+    }
 
 
 def main() -> int:
@@ -2400,19 +2799,25 @@ def main() -> int:
 
     import orbslamm_tpu_torch  # noqa: F401  (pins float32 / TF32 off)
     from orbslamm_tpu_torch.ops.cuda import hamming as ph
+    from orbslamm_tpu_torch.ops.cuda import segsum as ss
 
-    walls = {}
+    walls, seg_launches = {}, {}
 
     def phase(name, fn, *args):
+        ss.launches = 0  # the segment sum's launches from here on are this phase's
+        ss.launches_by_width.clear()
         t0 = time.perf_counter()
         out = fn(*args)
         torch.cuda.synchronize()
         walls[name] = time.perf_counter() - t0
-        print(f"phase {name}: {walls[name]:.1f} s", flush=True)
+        seg_launches[name] = ss.launches
+        print(f"phase {name}: {walls[name]:.1f} s, segsum launches {ss.launches} "
+              f"{dict(sorted(ss.launches_by_width.items()))}", flush=True)
         return out
 
-    phase("build", ph.build)
-    print(f"nvcc: {ph.build_seconds} s", flush=True)
+    phase("build", build_kernels, ph, ss)
+    print(f"nvcc: hamming {ph.build_seconds} s, segsum {ss.build_seconds} s (in parallel)",
+          flush=True)
     err, timings = phase("kernels", kernel_phase, torch, ph, device)
     sess, seq, i, result = phase("main_path", main_path_phase, torch, ph, device)
     main_launches = ph.launches
@@ -2431,17 +2836,43 @@ def main() -> int:
     window = window_problem(torch, bench_cfg(), sess.map, newest)
     frames = list(seq.images[:4])
     del sess
-    loop_result, _ = phase("loop_path", loop_path_phase, torch, ph, device)
+    loop_result, _, loop_pose_graph = phase("loop_path", loop_path_phase, torch, ph, device)
     mm_result, _, handoff = phase("multimap_path", multimap_path_phase, torch, ph, device)
+    gba, merge_pg = handoff.pop("merge_gba"), handoff.pop("merge_pose_graph")
+    C, Pn = window.T_cw.shape[0], window.points.shape[0]
+    seg_err, seg_rows = phase("segsum_kernels", segsum_kernel_phase, torch, ss, device, {
+        "merge_gba_cam": (gba.obs_cam, gba.T_cw.shape[0], (36, 6)),
+        "merge_gba_point": (gba.obs_point, gba.points.shape[0], (9, 3, 1)),
+        "merge_pose_graph_i": (merge_pg.edge_i, merge_pg.S_iw.shape[0], (49, 7)),
+        "merge_pose_graph_j": (merge_pg.edge_j, merge_pg.S_iw.shape[0], (49, 7)),
+        "loop_pose_graph_i": (loop_pose_graph.edge_i, loop_pose_graph.S_iw.shape[0], (49, 7)),
+        "loop_pose_graph_j": (loop_pose_graph.edge_j, loop_pose_graph.S_iw.shape[0], (49, 7)),
+        "window_pairs": (window.obs_cam.long() * Pn + window.obs_point.long(), C * Pn, (18,)),
+    })
+    repeat_result = phase("repeat", repeat_phase, torch, device, handoff, smi)
+    for k in ("mm", "merge_args"):  # the merge's mapper and copies are not needed further
+        handoff.pop(k)
     bank_result, _ = phase("bank_path", bank_path_phase, torch, ph, device)
     stereo_result, _ = phase("stereo_path", depth_path_phase, torch, ph, device, "stereo")
     rgbd_result, _ = phase("rgbd_path", depth_path_phase, torch, ph, device, "rgbd")
     dist_result = phase("dist_ba", dist_ba_phase, torch, device, frames, bench_cfg(), window,
                         handoff["merged_map"], multimap_cfg())
     mh_result = phase("multihost_path", multihost_path_phase, torch, handoff, mm_result)
+    seg_launches["multihost_path"] += mh_result["segsum_launches"]  # the workers' own
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     print("phase_walls_s " + json.dumps(walls), flush=True)
+    # launches on the paths: the kernel checks' own launches do not count
+    seg_paths = {k: v for k, v in seg_launches.items() if k not in ("kernels", "segsum_kernels")}
+    print("segsum_launches_by_path " + json.dumps(seg_paths), flush=True)
+    idle = [k for k in SOLVING_PHASES if seg_paths.get(k, 0) == 0]
+    if idle:
+        raise AssertionError(f"phases that solve on the card launched no segment sum: {idle}")
+    fp_s = (mm_result["fingerprint_s"] + bank_result["fingerprint_s"])
+    budget = {"host_path_cut_saves_s": host_result["bootstrap_cut_saves_s"],
+              "repeat_s": walls["repeat"], "fingerprint_s": fp_s,
+              "within": walls["repeat"] + fp_s <= host_result["bootstrap_cut_saves_s"] + 10.0}
+    print("repeat_budget " + json.dumps(budget), flush=True)
 
     # the local-map shape (2048 x 4096 window) stands for the kernel
     local = next(t for t in timings if t["case"] == "local_map")
@@ -2464,7 +2895,7 @@ def main() -> int:
         "library_ms": None if local["library_us"] is None else local["library_us"] / 1e3,
         "device_us": local["device_us"],
         "bound_us": local["bound_us"],
-    }]}
+    }, segsum_entry(seg_rows, seg_err, seg_paths)]}
     print(f"main path: {result['fps_steady']:.2f} fps steady, chunk median "
           f"{result['chunk_s_median']:.4f} s, ATE {result['ate_m']:.4f} m on {smi}",
           flush=True)
@@ -2490,6 +2921,9 @@ def main() -> int:
         ms_ = dist_result[name]["ms"]
         print(f"dist_ba {name}: {ms_[1]:.2f} ms per call on 1 slot, {ms_[DIST_SLOTS]:.2f} ms "
               f"on {DIST_SLOTS} slots of one card on {smi}", flush=True)
+    print(f"repeat: the first merge replayed twice bitwise equal, {repeat_result['seconds']} s; "
+          f"segment sums on the paths {sum(seg_paths.values())}, max |kernel - plain| "
+          f"{seg_err:.3g} on {smi}", flush=True)
     for r in mh_result["workers"]:
         print(f"multihost process {r['process']}: {r['exchanges']} exchanges, "
               f"{r['exchange_ms_per_call']:.1f} ms per exchange, shipped {r['shipped_bytes']} "

@@ -12,8 +12,12 @@ the iterations after convergence with ``lax.cond`` inside ``lax.scan``, a
 converged carry is frozen with ``torch.where`` here, so no decision ever
 leaves the device; where it runs every iteration (pose graph, Sim3
 refinement, global BA) so does the port. Linear solves use ``solve_ex`` /
-``inv_ex`` (no error check, hence no host sync). Segment sums are
-``index_add_`` (on CUDA their float order varies from run to run). Stereo
+``inv_ex`` (no error check, hence no host sync). Every float segment sum
+(edge to camera, point, (camera, point) pair or pose-graph node) runs over a
+plan of the solve's static edge list (``ops/cuda/segsum.py``), made once per
+solve: on the card the sorted segment-sum kernel, which adds in one fixed
+order with no atomics, so a solve gives the same bits on every run; on the
+CPU ``index_add_`` in edge order. Stereo
 and RGB-D observations add the reference's third residual row
 ``u - bf/z - u_r`` (EdgeStereoSE3Project*) with the 3-DoF chi2 gate; a
 monocular problem (``ur_obs``/``obs_ur`` None) runs the 2-row code alone.
@@ -26,6 +30,7 @@ from typing import NamedTuple
 import torch
 
 from orbslamm_tpu_torch.ops import geometry as geo
+from orbslamm_tpu_torch.ops.cuda import segsum as seg
 from orbslamm_tpu_torch.utils.trace import stage
 
 CHI2_MONO = 5.991  # 2-DoF 95% (reference Optimizer.cc chi2Mono)
@@ -422,11 +427,11 @@ def _jacfwd_batched(f, x: torch.Tensor) -> torch.Tensor:
     return J.permute(1, 2, 0)
 
 
-def _seg_add(n: int, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
-    """Segment sum of edge values into ``n`` nodes (scatter form; on CUDA the
-    float order of the atomics varies from run to run)."""
-    out = torch.zeros((n,) + vals.shape[1:], dtype=vals.dtype, device=vals.device)
-    return out.index_add_(0, idx, vals)
+def _seg_add(plan: seg.SegmentPlan, vals: torch.Tensor, form: str = "scatter") -> torch.Tensor:
+    """Segment sum of edge values over ``plan`` (``seg.segment_plan``): on
+    a CUDA tensor the fixed-order kernel; on the CPU ``index_add_`` in edge
+    order, or with ``form="sorted"`` the JAX package's sorted form."""
+    return seg.segment_sum(plan, vals, form)
 
 
 def pose_graph_optimize(p: PoseGraphProblem, iters: int = 20, lam0: float = 1e-4,
@@ -448,6 +453,7 @@ def _pose_graph_optimize(p, iters, lam0, cg_iters):
     E = p.edge_i.shape[0]
     dev = p.S_iw.device
     ei, ej = p.edge_i.long(), p.edge_j.long()
+    seg_i, seg_j = seg.segment_plan(ei, C), seg.segment_plan(ej, C)
     zeros = torch.zeros((E, 7), dtype=torch.float32, device=dev)
 
     def jac(Si, Sj):
@@ -472,16 +478,16 @@ def _pose_graph_optimize(p, iters, lam0, cg_iters):
         Ji, Jj = jac(Si, Sj)  # [E,7,7] each
         wJi = Ji * w[:, None, None]
         wJj = Jj * w[:, None, None]
-        g = _seg_add(C, ei, torch.einsum("eia,ei->ea", wJi, r)) \
-            + _seg_add(C, ej, torch.einsum("eia,ei->ea", wJj, r))
-        Hd = _seg_add(C, ei, torch.einsum("eia,eib->eab", wJi, Ji)) \
-            + _seg_add(C, ej, torch.einsum("eia,eib->eab", wJj, Jj))
+        g = _seg_add(seg_i, torch.einsum("eia,ei->ea", wJi, r)) \
+            + _seg_add(seg_j, torch.einsum("eia,ei->ea", wJj, r))
+        Hd = _seg_add(seg_i, torch.einsum("eia,eib->eab", wJi, Ji)) \
+            + _seg_add(seg_j, torch.einsum("eia,eib->eab", wJj, Jj))
         damp = (lam + 1e-6) * torch.clamp_min(torch.diagonal(Hd, dim1=-2, dim2=-1), 1.0)
 
         def mv(x, Ji=Ji, Jj=Jj, wJi=wJi, wJj=wJj, damp=damp):
             y = torch.einsum("eab,eb->ea", Ji, x[ei]) + torch.einsum("eab,eb->ea", Jj, x[ej])
-            out = _seg_add(C, ei, torch.einsum("eab,ea->eb", wJi, y)) \
-                + _seg_add(C, ej, torch.einsum("eab,ea->eb", wJj, y))
+            out = _seg_add(seg_i, torch.einsum("eab,ea->eb", wJi, y)) \
+                + _seg_add(seg_j, torch.einsum("eab,ea->eb", wJj, y))
             return torch.where(lock[:, None], x, out + damp * x)
 
         Hd_damped = torch.where(lock[:, None, None], eye7, Hd + torch.diag_embed(damp))
@@ -724,14 +730,30 @@ def _place_shards(p: BAProblem, shards) -> list:
     return out
 
 
-def _edge_pass(T_cw, points, s: BAProblem, chi2_e, dense: bool):
+class EdgePlans(NamedTuple):
+    """The segment plans of one shard's static edge list."""
+
+    cam: seg.SegmentPlan  # edges by camera
+    point: seg.SegmentPlan  # edges by point
+    pair: seg.SegmentPlan | None  # edges by (camera, point) pair: the dense Schur's W
+    form: str  # the CPU's segment-sum form, "scatter" or "sorted"
+
+
+def _edge_plans(s: BAProblem, C: int, Pn: int, dense: bool, form: str = "scatter") -> EdgePlans:
+    oc, op = s.obs_cam.long(), s.obs_point.long()
+    return EdgePlans(cam=seg.segment_plan(oc, C), point=seg.segment_plan(op, Pn),
+                     pair=seg.segment_plan(oc * Pn + op, C * Pn) if dense else None,
+                     form=form)
+
+
+def _edge_pass(T_cw, points, s: BAProblem, chi2_e, plans: EdgePlans):
     """One shard's edge pass at the current poses and points: residuals,
-    robust weights and Jacobians of its edges, reduced into the partial
-    normal-equation blocks. Returns (partials, Wcp): partials are
-    ``Hcc`` [C,6,6], ``Hpp`` [P,3,3], ``gc`` [C,6], ``gp`` [P,3],
-    ``w_per_pt`` [P], the current cost and, with ``dense``, ``Wd``
-    [C,P,6,3]; ``Wcp`` [E,6,3] is the per-edge camera-point block, which
-    stays on the shard (the CG's edge products read it)."""
+    robust weights and Jacobians of its edges, reduced over the shard's
+    ``plans`` into the partial normal-equation blocks. Returns (partials,
+    Wcp): partials are ``Hcc`` [C,6,6], ``Hpp`` [P,3,3], ``gc`` [C,6],
+    ``gp`` [P,3], ``w_per_pt`` [P], the current cost and, with a pair plan,
+    ``Wd`` [C,P,6,3]; ``Wcp`` [E,6,3] is the per-edge camera-point block,
+    which stays on the shard (the CG's edge products read it)."""
     C, Pn = T_cw.shape[0], points.shape[0]
     oc, op = s.obs_cam.long(), s.obs_point.long()
     r, pc, Tc, Kc = _ba_residuals(T_cw, s.K, points, s)
@@ -742,17 +764,18 @@ def _edge_pass(T_cw, points, s: BAProblem, chi2_e, dense: bool):
     Jc = Jc * (~s.cam_fixed)[oc][:, None, None]
     wJc = Jc * w[:, None, None]
     wJp = Jp * w[:, None, None]
+    f = plans.form
     parts = {
-        "Hcc": _seg_add(C, oc, torch.einsum("eia,eib->eab", wJc, Jc)),
-        "Hpp": _seg_add(Pn, op, torch.einsum("eia,eib->eab", wJp, Jp)),
-        "gc": _seg_add(C, oc, torch.einsum("eia,ei->ea", wJc, r)),
-        "gp": _seg_add(Pn, op, torch.einsum("eia,ei->ea", wJp, r)),
-        "w_per_pt": _seg_add(Pn, op, w),
+        "Hcc": _seg_add(plans.cam, torch.einsum("eia,eib->eab", wJc, Jc), f),
+        "Hpp": _seg_add(plans.point, torch.einsum("eia,eib->eab", wJp, Jp), f),
+        "gc": _seg_add(plans.cam, torch.einsum("eia,ei->ea", wJc, r), f),
+        "gp": _seg_add(plans.point, torch.einsum("eia,ei->ea", wJp, r), f),
+        "w_per_pt": _seg_add(plans.point, w, f),
         "cost": _ba_cost_from_residual(r, pc, s, s.obs_valid, chi2_e),
     }
     Wcp = torch.einsum("eia,eib->eab", wJc, Jp)  # [E,6,3]
-    if dense:
-        parts["Wd"] = _seg_add(C * Pn, oc * Pn + op, Wcp).reshape(C, Pn, 6, 3)
+    if plans.pair is not None:
+        parts["Wd"] = _seg_add(plans.pair, Wcp, f).reshape(C, Pn, 6, 3)
     return parts, Wcp
 
 
@@ -824,6 +847,7 @@ def bundle_adjust_shards(p: BAProblem, shards, iters: int = 10, chi2_th: float =
     C, Pn = p.T_cw.shape[0], p.points.shape[0]
     shards = _place_shards(p, shards)
     chi2s = [_chi2_per_edge(s, chi2_th) for s in shards]
+    plans = [_edge_plans(s, C, Pn, dense=True) for s in shards]
     lock = p.cam_fixed | ~p.cam_valid
     lockv = lock.repeat_interleave(6)
     eyeC = torch.eye(C * 6, dtype=torch.float32, device=dev)
@@ -831,9 +855,9 @@ def bundle_adjust_shards(p: BAProblem, shards, iters: int = 10, chi2_th: float =
     lam = torch.tensor(lam0, dtype=torch.float32, device=dev)
     done = torch.zeros((), dtype=torch.bool, device=dev)
     for _ in range(iters):
-        parts = [_edge_pass(Tn, pn, s, c2, True)[0]
-                 for Tn, pn, s, c2 in zip(_to_shards(T_cw, shards), _to_shards(points, shards),
-                                          shards, chi2s)]
+        parts = [_edge_pass(Tn, pn, s, c2, pl)[0]
+                 for Tn, pn, s, c2, pl in zip(_to_shards(T_cw, shards),
+                                              _to_shards(points, shards), shards, chi2s, plans)]
         red = _reduce(parts, dev)
         Hcc_d, Hpp_inv, observed = _damped_blocks(red, lam)
         Wd, gc, gp = red["Wd"], red["gc"], red["gp"]
@@ -876,25 +900,37 @@ def bundle_adjust_shards(p: BAProblem, shards, iters: int = 10, chi2_th: float =
 
 
 def bundle_adjust_cg(p: BAProblem, iters: int = 10, cg_iters: int = 30,
-                     chi2_th: float = CHI2_MONO, lam0: float = 1e-4) -> BAResult:
+                     chi2_th: float = CHI2_MONO, lam0: float = 1e-4,
+                     segsum: str = "scatter") -> BAResult:
     """LM bundle adjustment with a matrix-free Schur solve (reference
     RunGlobalBundleAdjustment): the reduced camera system is solved by a
     fixed count of block-Jacobi preconditioned CG iterations whose
-    matrix-vector product is three edge-wise segment sums (``index_add_``).
-    ``cost`` is the last iteration's trial cost, as in the JAX package."""
+    matrix-vector product is three edge-wise segment sums.
+    ``cost`` is the last iteration's trial cost, as in the JAX package.
+
+    ``segsum`` is the JAX package's parameter: on the CPU "scatter"
+    (default) sums with ``index_add_`` in edge order and "sorted" with the
+    JAX package's sorted form (``_make_sorted_segsum``: gather in sorted
+    order, a float64 running sum, boundary differences). On the card both
+    run the one fixed-order segment-sum kernel: both compute the same
+    segment sum, so both give the same bits. Any other value raises."""
     with stage("ba.global_cg"):
-        res = bundle_adjust_cg_shards(p, [p], iters, cg_iters, chi2_th, lam0)
+        res = bundle_adjust_cg_shards(p, [p], iters, cg_iters, chi2_th, lam0, segsum)
     return res._replace(obs_inlier=res.obs_inlier[0])
 
 
 def bundle_adjust_cg_shards(p: BAProblem, shards, iters: int = 10, cg_iters: int = 30,
-                            chi2_th: float = CHI2_MONO, lam0: float = 1e-4) -> BAResult:
+                            chi2_th: float = CHI2_MONO, lam0: float = 1e-4,
+                            segsum: str = "scatter") -> BAResult:
     """``bundle_adjust_cg`` with the observation edges split into ``shards``
     (as in ``bundle_adjust_shards``). Each shard keeps its edges' Jacobian
-    blocks; once per LM step its partial blocks are summed on ``p``'s
-    device, and once per CG iteration the [P,3] and [C,6] partials of its
-    edge products. With ``shards == [p]`` this is ``bundle_adjust_cg``.
-    ``obs_inlier`` holds one mask per shard."""
+    blocks and segment plans; once per LM step its partial blocks are
+    summed on ``p``'s device, and once per CG iteration the [P,3] and [C,6]
+    partials of its edge products. With ``shards == [p]`` this is
+    ``bundle_adjust_cg``. ``obs_inlier`` holds one mask per shard;
+    ``segsum`` is ``bundle_adjust_cg``'s."""
+    if segsum not in seg.FORMS:
+        raise ValueError(f"segsum={segsum!r}: expected one of {seg.FORMS}")
     C = p.T_cw.shape[0]
     dev = p.points.device
     eye6 = torch.eye(6, dtype=torch.float32, device=dev)
@@ -903,15 +939,16 @@ def bundle_adjust_cg_shards(p: BAProblem, shards, iters: int = 10, cg_iters: int
     ocs = [s.obs_cam.long() for s in shards]
     ops = [s.obs_point.long() for s in shards]
     Pn = p.points.shape[0]
+    plans = [_edge_plans(s, C, Pn, dense=False, form=segsum) for s in shards]
     lock = p.cam_fixed | ~p.cam_valid
 
     T_cw, points = p.T_cw, p.points
     lam = torch.tensor(lam0, dtype=torch.float32, device=dev)
     c_new = None
     for _ in range(iters):
-        passes = [_edge_pass(Tn, pn, s, c2, False)
-                  for Tn, pn, s, c2 in zip(_to_shards(T_cw, shards), _to_shards(points, shards),
-                                           shards, chi2s)]
+        passes = [_edge_pass(Tn, pn, s, c2, pl)
+                  for Tn, pn, s, c2, pl in zip(_to_shards(T_cw, shards),
+                                               _to_shards(points, shards), shards, chi2s, plans)]
         Wcps = [w for _, w in passes]
         red = _reduce([pt for pt, _ in passes], dev)
         Hcc_d, Hpp_inv, observed = _damped_blocks(red, lam)
@@ -919,13 +956,13 @@ def bundle_adjust_cg_shards(p: BAProblem, shards, iters: int = 10, cg_iters: int
         Hpp_invs = _to_shards(Hpp_inv, shards)
 
         def edge_pt(x, Wcps=Wcps):  # [C,6] -> sum over edges of W^T x, [P,3]
-            return _sum_to([_seg_add(Pn, op, torch.einsum("eab,ea->eb", Wcp, xs[oc]))
-                            for Wcp, xs, oc, op in zip(Wcps, _to_shards(x, shards), ocs, ops)],
+            return _sum_to([_seg_add(pl.point, torch.einsum("eab,ea->eb", Wcp, xs[oc]), segsum)
+                            for Wcp, xs, oc, pl in zip(Wcps, _to_shards(x, shards), ocs, plans)],
                            dev)
 
         def edge_cam(z, Wcps=Wcps):  # [P,3] -> sum over edges of W z, [C,6]
-            return _sum_to([_seg_add(C, oc, torch.einsum("eab,eb->ea", Wcp, zs[op]))
-                            for Wcp, zs, oc, op in zip(Wcps, _to_shards(z, shards), ocs, ops)],
+            return _sum_to([_seg_add(pl.cam, torch.einsum("eab,eb->ea", Wcp, zs[op]), segsum)
+                            for Wcp, zs, op, pl in zip(Wcps, _to_shards(z, shards), ops, plans)],
                            dev)
 
         def schur_mv(x, Hpp_inv=Hpp_inv, Hcc_d=Hcc_d, edge_pt=edge_pt, edge_cam=edge_cam):
@@ -934,8 +971,8 @@ def bundle_adjust_cg_shards(p: BAProblem, shards, iters: int = 10, cg_iters: int
 
         # exact Schur diagonal blocks for the block-Jacobi preconditioner
         Sdiag = Hcc_d - _sum_to([
-            _seg_add(C, oc, torch.einsum("eab,ebd,ecd->eac", Wcp, Hi[op], Wcp))
-            for Wcp, Hi, oc, op in zip(Wcps, Hpp_invs, ocs, ops)], dev)
+            _seg_add(pl.cam, torch.einsum("eab,ebd,ecd->eac", Wcp, Hi[op], Wcp), segsum)
+            for Wcp, Hi, op, pl in zip(Wcps, Hpp_invs, ops, plans)], dev)
         Sdiag = torch.where(lock[:, None, None], eye6[None], Sdiag)
         Minv = torch.linalg.inv_ex(Sdiag + 1e-6 * eye6[None])[0]
         zp = torch.einsum("pab,pb->pa", Hpp_inv, gp)

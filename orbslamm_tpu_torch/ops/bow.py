@@ -75,6 +75,7 @@ def _build_voc_device(desc: torch.Tensor, valid: torch.Tensor, branching: int, d
 
         for _ in range(iters):
             assign = assign_to(cents)
+            # 0/1 values over <= max_train (32768) < 2^24 rows: exact in any order
             sums = torch.zeros((Gk, bits.shape[1]), dtype=torch.float32, device=dev)
             sums.index_add_(0, assign, bits * w[:, None])
             cnts = torch.zeros(Gk, dtype=torch.float32, device=dev).index_add_(0, assign, w)

@@ -27,23 +27,19 @@ best = second = BIG (> 256) and argmin 0.
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
-import time
 from collections import Counter
-from pathlib import Path
 from typing import NamedTuple
 
 import torch
+
+from orbslamm_tpu_torch.ops.cuda.nvcc import LIBRARIES, SOURCES, compile_library
 
 BIG = 1e9
 launches = 0  # kernel launches made by match_tables (not by the plain twin)
 launches_by_shape: Counter = Counter()  # (mode, N, M) -> launches
 
-_REPO = Path(__file__).resolve().parents[3]
-_SOURCE = _REPO / "orbslamm_tpu_torch" / "csrc" / "hamming.cu"
-_LIBRARY = _REPO / "build" / "kernels" / "libhamming.so"
+_SOURCE = SOURCES / "hamming.cu"
+_LIBRARY = LIBRARIES / "libhamming.so"
 _lib = None
 _tile = None  # (rows per block, columns per tile) of the built kernel
 _slots: dict[int, int] = {}  # tile-kernel blocks resident at once, per device index
@@ -59,35 +55,15 @@ class MatchTables(NamedTuple):
     col_arg: torch.Tensor  # [M] i32 — argmin row per B column
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    return str(Path(cuda_home) / "bin" / "nvcc")
-
-
 def build() -> ctypes.CDLL:
     """Compile ``csrc/hamming.cu`` (if the library is missing or older than
     the source) and load it. Called at the first launch."""
     global _lib, _tile, build_seconds
     if _lib is not None:
         return _lib
-    if (not _LIBRARY.exists()
-            or _LIBRARY.stat().st_mtime < _SOURCE.stat().st_mtime):
-        _LIBRARY.parent.mkdir(parents=True, exist_ok=True)
-        tmp = _LIBRARY.with_suffix(f".{os.getpid()}.tmp.so")
-        t0 = time.perf_counter()
-        subprocess.run(
-            # the shared CUDA runtime is the one PyTorch loaded, so the
-            # profiler links these launches to the ranges they run in
-            [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-             "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-             "-cudart", "shared", "-o", str(tmp), str(_SOURCE)],
-            check=True,
-        )
-        os.replace(tmp, _LIBRARY)
-        build_seconds = time.perf_counter() - t0
+    seconds = compile_library(_SOURCE, _LIBRARY)
+    if seconds is not None:
+        build_seconds = seconds
     lib = ctypes.CDLL(str(_LIBRARY))
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.hamming_match_tables.argtypes = (

@@ -77,7 +77,7 @@ def test_port_never_imports_jax():
         from orbslamm_tpu_torch.models import (fused, local_mapping, loop_closing, map_state,
                                                multimap, system, tracking)
         from orbslamm_tpu_torch.ops import ba, bow, geometry, matching, orb, ransac
-        from orbslamm_tpu_torch.ops.cuda import hamming
+        from orbslamm_tpu_torch.ops.cuda import hamming, nvcc, segsum
         from orbslamm_tpu_torch.parallel import (dist_ba, multihost, multihost_demo,
                                                  multihost_mapper, streams)
         from orbslamm_tpu_torch.utils import trace
@@ -104,6 +104,7 @@ def test_port_never_imports_jax():
         sess.enable_loop_closing = False
         recs = [sess.process_frame(seq.images[i], float(seq.timestamps[i])) for i in range(4)]
         assert len(recs) == 4 and hamming.launches == 0
+        assert segsum.launches == 0
         assert ate.ate_from_poses(seq.poses_cw, seq.poses_cw) < 1e-6
         foreign = sorted(m for m in sys.modules
                          if m == "jax" or m.startswith("jax.")
