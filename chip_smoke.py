@@ -11,8 +11,8 @@ non-zero and no phase failure is caught:
    loader's build) are found;
 2. building the hand-written kernels with nvcc, one process per source, all
    started together: the matcher (csrc/hamming.cu) and the sorted segment
-   sum (csrc/segsum.cu), through which every float segment sum of a BA,
-   pose-graph or global-BA solve on the card runs;
+   sum (csrc/segsum.cu, one launch a call), through which every float
+   segment sum of a BA, pose-graph or global-BA solve on the card runs;
 3. the kernel against its plain torch version on the card: window mode at
    the main path's shapes 2048x2048 (motion model), 2048x4096 (local map)
    and 2048x8192 (fuse), epipolar mode at 2048x2048 (triangulation), a
@@ -136,23 +136,29 @@ non-zero and no phase failure is caught:
    Sim3) below 0.6 m, a new map on loss with the merged map kept, and >= 2
    kernel launches per tracked frame, and times the merge events; prints a
    ``fingerprint multimap`` line (``map_fingerprint``);
-8b. the segment-sum kernel against its plain version (``index_add_`` in edge
-   order) on the card, at the edge lists the paths give it: the multi-map
-   path's first merge (its global-BA slice's camera and point segments at
-   widths 36, 6, 9, 3 and 1, its essential graph at 49 and 7), the loop
-   path's essential graph (49 and 7), the dist_ba window's (camera, point)
-   pairs (18, almost all of the segments empty), and the edge cases: an
-   empty segment among full ones, one segment holding every edge, every
-   edge invalid (all on landmark 0 with zero values, as the solves' zero
-   weights make them), each at every width 1, 3, 6, 7, 9, 18, 36 and 49.
-   Tolerance: within 2 (L - 1) 2^-24 sum |v| per segment of L edges (two
-   float32 sums of the same values in different orders), and two launches
-   bitwise equal. At three shapes (``segsum_vs_plain`` lines): the call's
-   median time from CUDA events, the kernel's device time from
-   torch.profiler (which must show no device work but the kernel's two
-   passes, and counts only a session that recorded both passes of every
-   call) and from CUDA events around a CUDA graph of 20 calls, the bound
-   (bytes) and the replaced ``zeros`` + ``index_add_``;
+8b. the segment-sum kernel against its plain versions on the card, at the
+   edge lists the paths give it: the multi-map path's first merge (its
+   global-BA slice's camera and point segments at widths 36, 6, 9, 3 and 1,
+   its essential graph's pair plan at 49 and 7), the loop path's essential
+   graph (its first nodes alone, and its pair plan, at 49 and 7), the
+   dist_ba window's (camera, point) pairs (18, almost all of the segments
+   empty), and the edge cases: an empty segment among full ones, one segment
+   holding every edge, every edge invalid (all on landmark 0 with zero
+   values, as the solves' zero weights make them), each at every width 1, 3,
+   6, 7, 9, 18, 36 and 49. Every case: the kernel bitwise equal to
+   ``segment_sum_tiled_ref`` (the plain version in the kernel's order, run
+   on the card) and to a second launch, every counter back at 0, one kernel
+   launch a call, and within 2 (L - 1) 2^-24 sum |v| per segment of L edges
+   of ``index_add_`` in edge order (two float32 sums of the same values in
+   different orders; a pair's plain version adds its two lists' sums once
+   more: one rounding more). At five shapes (``segsum_vs_plain`` lines: the
+   merged map's camera and point segments, the loop's essential graph by its
+   first node and as a pair, the window's pairs):
+   the call's median time from CUDA events, the kernel's device time from
+   torch.profiler (which must show no device work but the kernel, one
+   launch a call, and counts only a session that recorded every call) and
+   from CUDA events around a CUDA graph of 20 calls, the bound (bytes) and
+   the replaced ``zeros`` + ``index_add_``;
 8c. repeat: the multi-map path's first merge replayed twice from clones of
    its arguments through ``MultiMapper._do_merge_inner`` (``merge_maps``,
    the essential-graph correction, the seam fuse, the global-BA slice) on a
@@ -235,8 +241,9 @@ non-zero and no phase failure is caught:
 
 Every phase that solves a BA, pose graph or global BA on the card (loop,
 multi-map, bank, stereo, dist_ba, multihost, repeat) must have launched the
-segment-sum kernel; each phase's count is set to 0 just before it and read
-just after (the multihost workers report their own). A ``fingerprint`` line
+segment-sum kernel, one kernel launch a call; each phase's counts are set to
+0 just before it and read just after (the multihost workers report their
+own). A ``fingerprint`` line
 is a sha1 of every live map's ``MapState`` fields, the merges' keyframes,
 the merge's frame and the follower replay count, with map ids left out
 (they count across the process): two runs of one tree print the same.
@@ -253,6 +260,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import math
 import socket
 import subprocess
 import sys
@@ -317,8 +325,8 @@ HBM_BYTES_PER_S = 3.35e12
 BIT_OPS_PER_S = 8 * INT8_OPS_PER_S
 # the matcher's kernels (csrc/hamming.cu), as the profiler names them
 MATCHER_KERNELS = ("hamming_tiles_kernel", "hamming_finalize_kernel")
-# the segment sum's kernel (csrc/segsum.cu, both passes), as the profiler names it
-SEGSUM_KERNELS = ("group_sum_kernel",)
+# the segment sum's kernel (csrc/segsum.cu, one launch a call), as the profiler names it
+SEGSUM_KERNELS = ("segsum_kernel",)
 # the row widths the solves sum: 1, 3, 6, 9 and 36 in the BAs (weights,
 # gradients, blocks), 18 in the dense BA's camera-point blocks, 7 and 49 in
 # the Sim3 pose graph
@@ -1657,37 +1665,47 @@ def _fingerprint_line(torch, kind, maps, merges, merge_frame, replays):
 
 
 def segsum_cases(torch, ss, device, sources):
-    """(name, plan, values) of the segment-sum check: each edge list of
-    ``sources`` ({name: (ids, n, widths)}) at its widths, and the edge
-    cases at every width of SEGSUM_WIDTHS on the merged map's point edge
-    list: every odd segment empty, one segment holding every edge, every
-    edge invalid (all on landmark 0 with zero values). Values are seeded
-    normal float32."""
+    """(name, plan, a, b) of the segment-sum check: each edge list of
+    ``sources`` ({name: (ids, ids of a pair's second list or None, n,
+    widths)}) at its widths, and the edge cases at every width of
+    SEGSUM_WIDTHS on the merged map's point edge list: every odd segment
+    empty, one segment holding every edge, every edge invalid (all on
+    landmark 0 with zero values). ``b`` is None but for a pair plan, whose
+    call is ``segment_sum_pair(plan, a, b)``. Values are seeded normal
+    float32."""
     rng = np.random.default_rng(0)
-    ids, n = sources["merge_gba_point"][:2]
+    ids = sources["merge_gba_point"][0]
+    n = sources["merge_gba_point"][2]
     lists = dict(sources)
-    lists["empty_segments"] = (2 * (ids // 2), n, SEGSUM_WIDTHS)
-    lists["one_segment"] = (torch.full_like(ids, 17), n, SEGSUM_WIDTHS)
-    lists["all_invalid"] = (torch.zeros_like(ids), n, SEGSUM_WIDTHS)
+    lists["empty_segments"] = (2 * (ids // 2), None, n, SEGSUM_WIDTHS)
+    lists["one_segment"] = (torch.full_like(ids, 17), None, n, SEGSUM_WIDTHS)
+    lists["all_invalid"] = (torch.zeros_like(ids), None, n, SEGSUM_WIDTHS)
     cases = []
-    for name, (idx, m, widths) in lists.items():
-        plan = ss.segment_plan(idx.to(device), m)
+    for name, (idx, idx_b, m, widths) in lists.items():
+        if idx_b is None:
+            plan = ss.segment_plan(idx.to(device), m)
+        else:
+            plan = ss.segment_plan_pair(idx.to(device), idx_b.to(device), m)
         for w in widths:
             shape = {36: (6, 6), 49: (7, 7), 9: (3, 3), 18: (6, 3), 1: ()}.get(w, (w,))
-            v = rng.normal(size=(idx.shape[0],) + shape).astype(np.float32)
+            v = rng.normal(size=(plan.idx.shape[0],) + shape).astype(np.float32)
             if name == "all_invalid":
                 v[:] = 0.0
-            cases.append((f"{name}_{w}", plan, torch.as_tensor(v, device=device)))
+            v = torch.as_tensor(v, device=device)
+            a, b = (v, None) if plan.split is None else (v[:plan.split], v[plan.split:])
+            cases.append((f"{name}_{w}", plan, a, b))
     return cases
 
 
-def segsum_bound_us(vals, n) -> tuple[float, int]:
+def segsum_bound_us(plan, a, b) -> tuple[float, int]:
     """The least time of one segment sum: the values and their int32
     segment ids read once and the [n, width] sums written once, at the
     memory rate (one add per value, far below any compute limit). Returns
     (us, bytes)."""
-    E = vals.shape[0]
-    nbytes = int(vals.nbytes) + 4 * E + 4 * n * (int(vals[0].numel()) if E else 0)
+    E = plan.idx.shape[0]
+    width = math.prod(a.shape[1:])
+    nbytes = (int(a.nbytes) + (0 if b is None else int(b.nbytes)) + 4 * E
+              + 4 * plan.n * width)
     return nbytes / HBM_BYTES_PER_S * 1e6, nbytes
 
 
@@ -1724,8 +1742,8 @@ def graph_us(torch, fn, reps=20, replays=5) -> float:
 
 def segsum_profile_us(torch, fn, reps=20):
     """torch.profiler over ``reps`` calls of the segment sum (after a warm
-    call): the device time a call of its kernel's two passes, from a session
-    that recorded both passes of every call (at most 3 sessions; a session
+    call): the device time a call of its kernel, one launch a call, from a
+    session that recorded every call's launch (at most 3 sessions; a session
     on the card now and then drops kernel events), else None. Returns (us or
     None, kernel events recorded, names of any other device operations)."""
     from torch.autograd import DeviceType
@@ -1742,58 +1760,86 @@ def segsum_profile_us(torch, fn, reps=20):
                and not getattr(e, "is_user_annotation", False)]
         mine = [e.time_range.elapsed_us() for e in ops if is_segsum(e.name)]
         foreign = sorted({e.name for e in ops if not is_segsum(e.name)})
-        if len(mine) >= 2 * reps:
+        if len(mine) > reps:
+            raise AssertionError(f"segment_sum made {len(mine)} kernel launches in {reps} calls")
+        if len(mine) == reps:
             return sum(mine) / reps, len(mine), foreign
     return None, len(mine), foreign
 
 
-SEGSUM_TIMED = ("merge_gba_cam_36", "merge_gba_point_3", "loop_pose_graph_i_7")
+# the timed shapes: the merged map's global-BA camera and point segments, the
+# loop's essential graph by its first node and as the pair the pose graph
+# sums, and the dist_ba window's pair segments (almost all empty)
+SEGSUM_TIMED = ("merge_gba_cam_36", "merge_gba_point_3", "loop_pose_graph_i_7",
+                "loop_pose_graph_pair_7", "window_pairs_18")
 
 
 def segsum_kernel_phase(torch, ss, device, sources):
-    """The segment-sum kernel against its plain version on the card (see the
-    module docstring, 8b). Returns (max_abs_err, rows)."""
+    """The segment-sum kernel against its plain versions on the card (see
+    the module docstring, 8b). Returns (max_abs_err, rows)."""
     err, rows = 0.0, []
-    for name, plan, vals in segsum_cases(torch, ss, device, sources):
-        a = ss.segment_sum(plan, vals)
-        b = ss.segment_sum(plan, vals)
-        want = ss.segment_sum_ref(plan, vals)
+    for name, plan, a, b in segsum_cases(torch, ss, device, sources):
+        if b is None:
+            call = lambda plan=plan, a=a: ss.segment_sum(plan, a)  # noqa: E731
+            plain = lambda plan=plan, a=a: ss.segment_sum_ref(plan, a)  # noqa: E731
+            tiled = ss.segment_sum_tiled_ref(plan, a)  # in the kernel's tiles
+            flat = a
+        else:
+            call = lambda plan=plan, a=a, b=b: ss.segment_sum_pair(plan, a, b)  # noqa: E731
+            plain = lambda plan=plan, a=a, b=b: ss.segment_sum_pair_ref(plan, a, b)  # noqa: E731
+            tiled = ss.segment_sum_pair_tiled_ref(plan, a, b)
+            flat = torch.cat([a, b])
+        kernels = ss.kernel_launches
+        out1 = call()
+        out2 = call()
+        want = plain()
         torch.cuda.synchronize()
-        if not torch.equal(a, b):
+        if ss.kernel_launches != kernels + 2:
+            raise AssertionError(f"segsum {name}: {ss.kernel_launches - kernels} launches in 2 calls")
+        if not torch.equal(out1, out2):
             raise AssertionError(f"segsum {name}: two launches differ")
-        flat = vals.reshape(vals.shape[0], -1).double()
+        if not torch.equal(out1, tiled):
+            raise AssertionError(f"segsum {name}: the kernel differs from segment_sum_tiled_ref")
+        if bool(plan.tables.counters.any()):
+            raise AssertionError(f"segsum {name}: a counter not back at 0")
+        flat = flat.reshape(flat.shape[0], -1).double()
         abs_sum = torch.zeros((plan.n, flat.shape[1]), dtype=torch.float64,
-                              device=vals.device).index_add_(0, plan.idx, flat.abs())
+                              device=flat.device).index_add_(0, plan.idx, flat.abs())
         L = (plan.end - plan.start).double()[:, None]
         bound = 2.0 * torch.clamp_min(L - 1.0, 0.0) * 2.0 ** -24 * abs_sum
-        d = (a.double() - want.double()).reshape(plan.n, -1).abs()
+        if b is not None:  # the pair's plain version adds its two sums once more
+            bound += 2.0 ** -24 * want.double().reshape(plan.n, -1).abs()
+        d = (out1.double() - want.double()).reshape(plan.n, -1).abs()
         if bool((d > bound).any()):
             raise AssertionError(f"segsum {name}: off by {float(d.max())}, beyond "
                                  f"2 (L - 1) 2^-24 sum |v|")
-        if name.startswith("all_invalid") and bool((a != 0).any()):
+        if name.startswith("all_invalid") and bool((out1 != 0).any()):
             raise AssertionError(f"segsum {name}: a zero edge list summed to nonzero")
         e = float(d.max()) if d.numel() else 0.0
         err = max(err, e)
         lens = (plan.end - plan.start)
-        row = {"case": name, "edges": int(vals.shape[0]), "segments": plan.n,
-               "width": int(vals[0].numel()), "longest_segment": int(lens.max()),
-               "empty_segments": int((lens == 0).sum()), "max_abs_err": e,
-               "bound_max": float(bound.max()) if bound.numel() else 0.0,
-               "bound_share": float((d / bound.clamp_min(1e-300)).max()) if d.numel() else 0.0}
+        row = {"case": name, "edges": int(plan.idx.shape[0]), "segments": plan.n,
+               "width": int(a[0].numel()),
+               "tile_rows": ss.tile_rows(a[0].numel(), plan.idx.shape[0], plan.tables.sms),
+               "longest_segment": int(lens.max()), "empty_segments": int((lens == 0).sum()),
+               "max_abs_err": e, "bound_max": float(bound.max()) if bound.numel() else 0.0,
+               "bound_share": float((d / bound.clamp_min(1e-300)).max()) if d.numel() else 0.0,
+               "equals_tiled_ref": True}
         if name in SEGSUM_TIMED:
-            call = lambda plan=plan, vals=vals: ss.segment_sum(plan, vals)  # noqa: E731
-            shape = (plan.n,) + tuple(vals.shape[1:])
+            shape = (plan.n,) + tuple(a.shape[1:])
             row["call_us"] = _median_ms(torch, call) * 1e3
-            row["plain_ms"] = _median_ms(torch, lambda: ss.segment_sum_ref(plan, vals))
+            row["plain_ms"] = _median_ms(torch, plain)
             row["device_us"], row["profiler_events"], foreign = segsum_profile_us(torch, call)
             if foreign:
                 raise AssertionError(f"segment_sum launched more than its kernel: {foreign}")
             row["graph_us"] = graph_us(torch, call)
-            row["bound_us"], row["bytes"] = segsum_bound_us(vals, plan.n)
+            row["bound_us"], row["bytes"] = segsum_bound_us(plan, a, b)
             row["bound_by"] = "bytes"
-            # the replaced scatter: index_add_ into a zeroed buffer
+            # the replaced scatter: index_add_ into a zeroed buffer, of both
+            # lists at once for a pair
+            v = a if b is None else torch.cat([a, b])
             row["library_us"] = _median_ms(torch, lambda: torch.zeros(
-                shape, device=vals.device).index_add_(0, plan.idx, vals)) * 1e3
+                shape, device=v.device).index_add_(0, plan.idx, v)) * 1e3
         rows.append(row)
         print("segsum_vs_plain " + json.dumps(row), flush=True)
     return err, rows
@@ -2773,8 +2819,9 @@ def segsum_entry(rows, err, paths) -> dict:
         "bound_us": head["bound_us"],
         "library_us": head["library_us"],
         "graph_us": head["graph_us"],
-        "timed": [{k: r[k] for k in ("case", "edges", "segments", "width", "call_us", "device_us",
-                                     "graph_us", "plain_ms", "bound_us", "library_us")}
+        "timed": [{k: r[k] for k in ("case", "edges", "segments", "width", "tile_rows", "call_us",
+                                     "device_us", "graph_us", "plain_ms", "bound_us",
+                                     "library_us")}
                   for r in timed],
     }
 
@@ -2804,7 +2851,8 @@ def main() -> int:
     walls, seg_launches = {}, {}
 
     def phase(name, fn, *args):
-        ss.launches = 0  # the segment sum's launches from here on are this phase's
+        ss.launches = 0  # the segment sum's calls and launches from here on are this phase's
+        ss.kernel_launches = 0
         ss.launches_by_width.clear()
         t0 = time.perf_counter()
         out = fn(*args)
@@ -2813,6 +2861,9 @@ def main() -> int:
         seg_launches[name] = ss.launches
         print(f"phase {name}: {walls[name]:.1f} s, segsum launches {ss.launches} "
               f"{dict(sorted(ss.launches_by_width.items()))}", flush=True)
+        if ss.kernel_launches != ss.launches:
+            raise AssertionError(f"phase {name}: {ss.kernel_launches} segment-sum kernel "
+                                 f"launches in {ss.launches} calls")
         return out
 
     phase("build", build_kernels, ph, ss)
@@ -2841,13 +2892,16 @@ def main() -> int:
     gba, merge_pg = handoff.pop("merge_gba"), handoff.pop("merge_pose_graph")
     C, Pn = window.T_cw.shape[0], window.points.shape[0]
     seg_err, seg_rows = phase("segsum_kernels", segsum_kernel_phase, torch, ss, device, {
-        "merge_gba_cam": (gba.obs_cam, gba.T_cw.shape[0], (36, 6)),
-        "merge_gba_point": (gba.obs_point, gba.points.shape[0], (9, 3, 1)),
-        "merge_pose_graph_i": (merge_pg.edge_i, merge_pg.S_iw.shape[0], (49, 7)),
-        "merge_pose_graph_j": (merge_pg.edge_j, merge_pg.S_iw.shape[0], (49, 7)),
-        "loop_pose_graph_i": (loop_pose_graph.edge_i, loop_pose_graph.S_iw.shape[0], (49, 7)),
-        "loop_pose_graph_j": (loop_pose_graph.edge_j, loop_pose_graph.S_iw.shape[0], (49, 7)),
-        "window_pairs": (window.obs_cam.long() * Pn + window.obs_point.long(), C * Pn, (18,)),
+        "merge_gba_cam": (gba.obs_cam, None, gba.T_cw.shape[0], (36, 6)),
+        "merge_gba_point": (gba.obs_point, None, gba.points.shape[0], (9, 3, 1)),
+        "merge_pose_graph_pair": (merge_pg.edge_i, merge_pg.edge_j, merge_pg.S_iw.shape[0],
+                                  (49, 7)),
+        "loop_pose_graph_i": (loop_pose_graph.edge_i, None, loop_pose_graph.S_iw.shape[0],
+                              (49, 7)),
+        "loop_pose_graph_pair": (loop_pose_graph.edge_i, loop_pose_graph.edge_j,
+                                 loop_pose_graph.S_iw.shape[0], (49, 7)),
+        "window_pairs": (window.obs_cam.long() * Pn + window.obs_point.long(), None, C * Pn,
+                         (18,)),
     })
     repeat_result = phase("repeat", repeat_phase, torch, device, handoff, smi)
     for k in ("mm", "merge_args"):  # the merge's mapper and copies are not needed further

@@ -431,7 +431,14 @@ def _seg_add(plan: seg.SegmentPlan, vals: torch.Tensor, form: str = "scatter") -
     """Segment sum of edge values over ``plan`` (``seg.segment_plan``): on
     a CUDA tensor the fixed-order kernel; on the CPU ``index_add_`` in edge
     order, or with ``form="sorted"`` the JAX package's sorted form."""
-    return seg.segment_sum(plan, vals, form)
+    return seg.segment_sum(plan, vals.contiguous(), form)
+
+
+def _seg_add_pair(plan: seg.SegmentPlan, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a`` summed over the pair plan's first edge list plus ``b`` over its
+    second (``seg.segment_plan_pair``): one kernel launch on the card; on
+    the CPU ``index_add_`` of each in edge order, then one add."""
+    return seg.segment_sum_pair(plan, a.contiguous(), b.contiguous())
 
 
 def pose_graph_optimize(p: PoseGraphProblem, iters: int = 20, lam0: float = 1e-4,
@@ -440,8 +447,9 @@ def pose_graph_optimize(p: PoseGraphProblem, iters: int = 20, lam0: float = 1e-4
 
     Per-edge Jacobians are exact forward-mode derivatives (as the JAX
     package's ``vmap(jacfwd)``), computed for all edges at once. H x is
-    three edge-wise segment ops, solved by a fixed count of block-Jacobi
-    preconditioned CG iterations. Like the JAX
+    two edge gathers and one segment sum over both ends of every edge (a
+    pair plan: one kernel launch on the card), solved by a fixed count of
+    block-Jacobi preconditioned CG iterations. Like the JAX
     package's ``lax.scan``, every LM and CG iteration runs; a rejected step
     leaves S unchanged."""
     with stage("ba.pose_graph"):
@@ -453,7 +461,7 @@ def _pose_graph_optimize(p, iters, lam0, cg_iters):
     E = p.edge_i.shape[0]
     dev = p.S_iw.device
     ei, ej = p.edge_i.long(), p.edge_j.long()
-    seg_i, seg_j = seg.segment_plan(ei, C), seg.segment_plan(ej, C)
+    seg_ij = seg.segment_plan_pair(ei, ej, C)  # each product sums over both ends at once
     zeros = torch.zeros((E, 7), dtype=torch.float32, device=dev)
 
     def jac(Si, Sj):
@@ -478,16 +486,16 @@ def _pose_graph_optimize(p, iters, lam0, cg_iters):
         Ji, Jj = jac(Si, Sj)  # [E,7,7] each
         wJi = Ji * w[:, None, None]
         wJj = Jj * w[:, None, None]
-        g = _seg_add(seg_i, torch.einsum("eia,ei->ea", wJi, r)) \
-            + _seg_add(seg_j, torch.einsum("eia,ei->ea", wJj, r))
-        Hd = _seg_add(seg_i, torch.einsum("eia,eib->eab", wJi, Ji)) \
-            + _seg_add(seg_j, torch.einsum("eia,eib->eab", wJj, Jj))
+        g = _seg_add_pair(seg_ij, torch.einsum("eia,ei->ea", wJi, r),
+                          torch.einsum("eia,ei->ea", wJj, r))
+        Hd = _seg_add_pair(seg_ij, torch.einsum("eia,eib->eab", wJi, Ji),
+                           torch.einsum("eia,eib->eab", wJj, Jj))
         damp = (lam + 1e-6) * torch.clamp_min(torch.diagonal(Hd, dim1=-2, dim2=-1), 1.0)
 
         def mv(x, Ji=Ji, Jj=Jj, wJi=wJi, wJj=wJj, damp=damp):
             y = torch.einsum("eab,eb->ea", Ji, x[ei]) + torch.einsum("eab,eb->ea", Jj, x[ej])
-            out = _seg_add(seg_i, torch.einsum("eab,ea->eb", wJi, y)) \
-                + _seg_add(seg_j, torch.einsum("eab,ea->eb", wJj, y))
+            out = _seg_add_pair(seg_ij, torch.einsum("eab,ea->eb", wJi, y),
+                                torch.einsum("eab,ea->eb", wJj, y))
             return torch.where(lock[:, None], x, out + damp * x)
 
         Hd_damped = torch.where(lock[:, None, None], eye7, Hd + torch.diag_embed(damp))

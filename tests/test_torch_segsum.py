@@ -23,6 +23,7 @@ import torch
 from orbslamm_tpu.ops import ba as jba
 from orbslamm_tpu_torch import convert
 from orbslamm_tpu_torch.ops import ba as tba
+from orbslamm_tpu_torch.ops import geometry as tgeo
 from orbslamm_tpu_torch.ops.cuda import segsum as ss
 
 torch.set_num_threads(2)
@@ -52,27 +53,31 @@ CASES = ["random", "empty_segments", "one_segment", "no_edges", "pairs"]
 @pytest.mark.parametrize("case", CASES)
 def test_plan_matches_numpy(case):
     """The permutation is numpy's stable argsort; each segment's start and
-    end are numpy's left and right searchsorted; the kernel's chunk tables
-    cut each segment's sorted run, in order, into chunks of at most
-    CHUNK_ROWS edges, within the static bound n + ceil(E / CHUNK_ROWS)."""
+    end are numpy's left and right searchsorted; the kernel's int32 tables
+    hold the permutation, the sorted ids and the bounds (one segment past
+    the last, empty here); ``tile_pieces`` cuts the sorted rows where the
+    segment or the tile changes, as a numpy cut does, at two tile sizes."""
     ids, n = _ids(case, np.random.default_rng(1))
     plan = ss.segment_plan(torch.as_tensor(ids), n)
     order = np.argsort(ids, kind="stable")
     s = ids[order]
-    assert plan.n == n and plan.tables is None  # a CPU plan carries no kernel tables
+    t = plan.tables
+    assert plan.n == n and plan.split is None
+    assert t.counters is None and t.launch is None  # a CPU plan binds no kernel
     assert np.array_equal(plan.perm.numpy(), order)
     assert np.array_equal(plan.start.numpy(), np.searchsorted(s, np.arange(n), side="left"))
     assert np.array_equal(plan.end.numpy(), np.searchsorted(s, np.arange(n), side="right"))
-    t = ss.kernel_tables(plan.perm, plan.start, plan.end)
-    lo, hi, cs = t.chunk_lo.numpy(), t.chunk_hi.numpy(), t.chunk_start.numpy()
-    assert t.perm.dtype == torch.int32 and np.array_equal(t.perm.numpy(), order)
-    assert len(lo) == n + -(-len(ids) // ss.CHUNK_ROWS) and len(cs) == n + 1
-    for seg in range(n):
-        runs = [(lo[c], hi[c]) for c in range(cs[seg], cs[seg + 1])]
-        a, b = plan.start[seg].item(), plan.end[seg].item()
-        want = [(k, min(k + ss.CHUNK_ROWS, b)) for k in range(a, b, ss.CHUNK_ROWS)]
-        assert runs == want, seg
-    assert (lo[cs[-1]:] == 0).all() and (hi[cs[-1]:] == 0).all()  # empty past the last
+    assert t.perm.dtype == t.sorted_ids.dtype == t.bounds.dtype == torch.int32
+    assert np.array_equal(t.perm.numpy(), order) and np.array_equal(t.sorted_ids.numpy(), s)
+    assert np.array_equal(t.bounds.numpy(), np.searchsorted(s, np.arange(n + 2), side="left"))
+    for tile in (32, 100):
+        k = np.arange(len(s))
+        cut = np.flatnonzero(np.r_[True, (s[1:] != s[:-1]) | (k[1:] // tile != k[:-1] // tile)]
+                             ) if len(s) else np.zeros(0, int)
+        seg, tl, lo, hi = (x.numpy() for x in ss.tile_pieces(plan, tile))
+        assert np.array_equal(lo, cut) and np.array_equal(hi, np.r_[cut[1:], len(s)][:len(cut)])
+        assert np.array_equal(seg, s[cut]) and np.array_equal(tl, cut // tile)
+        assert ((hi - 1) // tile == tl).all() and (hi > lo).all()
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -90,6 +95,163 @@ def test_scatter_form_is_index_add(case):
                 ss.segment_sum(plan, vals, "scatter"), tba._seg_add(plan, vals)):
         assert got.dtype == want.dtype and torch.equal(got, want)
     assert ss.launches == before
+
+
+def _loop_tiled(ids, n, v, tile):
+    """The kernel's order written as loops over float32 rows: each segment's
+    pieces, one a tile; within a piece its tile-aligned groups of
+    GROUP_ROWS rows, each added left to right, then the groups' sums in the
+    pairwise tree; then the pieces' sums in the same tree."""
+
+    def tree(xs):
+        xs, d = list(xs), 1
+        while d < len(xs):
+            for q in range(0, len(xs) - d, 2 * d):
+                xs[q] = xs[q] + xs[q + d]
+            d *= 2
+        return xs[0]
+
+    G = ss.GROUP_ROWS
+    order = np.argsort(ids, kind="stable")
+    s, sv = ids[order], v[order]
+    out = np.zeros((n, v.shape[1]), np.float32)
+    for seg in range(n):
+        lo, hi = np.searchsorted(s, seg), np.searchsorted(s, seg, side="right")
+        pieces = []
+        for t in range(lo // tile, (hi - 1) // tile + 1) if hi > lo else ():
+            a, b = max(lo, t * tile), min(hi, (t + 1) * tile)
+            groups = []
+            for g0 in range(a - (a - t * tile) % G, b, G):
+                acc = sv[max(a, g0)].copy()
+                for r in range(max(a, g0) + 1, min(b, g0 + G)):
+                    acc = acc + sv[r]
+                groups.append(acc)
+            pieces.append(tree(groups))
+        if pieces:
+            out[seg] = tree(pieces)
+    return out
+
+
+@pytest.mark.parametrize("tile", [32, 45, 256])
+@pytest.mark.parametrize("width", [1, 6, 7])
+@pytest.mark.parametrize("case", CASES)
+def test_tiled_ref_is_the_kernel_order(case, width, tile):
+    """``segment_sum_tiled_ref`` (tensor ops) bitwise equal to the kernel's
+    order written as loops, with segments across several tiles."""
+    rng = np.random.default_rng(3)
+    ids, n = _ids(case, rng)
+    v = rng.normal(size=(len(ids), width)).astype(np.float32)
+    got = ss.segment_sum_tiled_ref(ss.segment_plan(torch.as_tensor(ids), n),
+                                   torch.as_tensor(v), tile)
+    assert got.dtype == torch.float32 and got.shape == (n, width)
+    assert np.array_equal(got.numpy().view(np.int32), _loop_tiled(ids, n, v, tile).view(np.int32))
+
+
+def _reorder_bound(ids, n, v):
+    """2 (L - 1) 2^-24 sum |v| per segment of L edges, [n, width]."""
+    v2 = v.reshape(len(ids), -1).astype(np.float64)
+    abs_seg = np.zeros((n, v2.shape[1]))
+    np.add.at(abs_seg, ids, np.abs(v2))
+    L = np.bincount(ids, minlength=n)[:, None]
+    return 2 * np.maximum(L - 1, 0) * EPS * abs_seg
+
+
+@pytest.mark.parametrize("width", [1, 3, 6, 7, 9, 18, 36, 49])
+@pytest.mark.parametrize("case", ["random", "empty_segments", "one_segment", "pairs"])
+def test_tiled_ref_within_bound(case, width):
+    """The kernel's order against ``index_add_`` in edge order, at every row
+    width the solves sum, with tiles of 32 rows so that segments span
+    several tiles: within the reordering bound; empty segments exactly 0."""
+    rng = np.random.default_rng(width + 7)
+    ids, n = _ids(case, rng)
+    shape = {36: (6, 6), 49: (7, 7), 9: (3, 3), 18: (6, 3), 1: ()}.get(width, (width,))
+    v = rng.normal(size=(len(ids),) + shape).astype(np.float32)
+    plan = ss.segment_plan(torch.as_tensor(ids), n)
+    got = ss.segment_sum_tiled_ref(plan, torch.as_tensor(v), 32)
+    want = ss.segment_sum_ref(plan, torch.as_tensor(v))
+    assert got.shape == want.shape and got.dtype == want.dtype
+    d = np.abs(got.numpy().astype(np.float64) - want.numpy()).reshape(n, -1)
+    assert (d <= _reorder_bound(ids, n, v)).all(), d.max()
+    empty = np.bincount(ids, minlength=n) == 0
+    assert (got.numpy().reshape(n, -1)[empty] == 0).all()
+
+
+@pytest.mark.parametrize("width", [7, 49])
+def test_pair_is_two_index_adds(width):
+    """``segment_sum_pair`` on the CPU: bitwise ``index_add_`` of each list
+    in edge order plus one add (the pose graph's CPU numbers stay as they
+    were), no kernel launch; its tiled order within the reordering bound;
+    a pair plan and a single plan refuse each other's sum."""
+    rng = np.random.default_rng(width)
+    ei, ej = rng.integers(0, 60, 400), rng.integers(0, 60, 400)
+    shape = (width,) if width == 7 else (7, 7)
+    a = torch.as_tensor(rng.normal(size=(400,) + shape).astype(np.float32))
+    b = torch.as_tensor(rng.normal(size=(400,) + shape).astype(np.float32))
+    plan = ss.segment_plan_pair(torch.as_tensor(ei), torch.as_tensor(ej), 60)
+    before = ss.launches
+    got = ss.segment_sum_pair(plan, a, b)
+    want = (torch.zeros((60,) + shape).index_add_(0, torch.as_tensor(ei), a)
+            + torch.zeros((60,) + shape).index_add_(0, torch.as_tensor(ej), b))
+    assert ss.launches == before and torch.equal(got, want)
+    assert torch.equal(tba._seg_add_pair(plan, a, b), want)
+    tiled = ss.segment_sum_pair_tiled_ref(plan, a, b, 32)
+    ids = np.concatenate([ei, ej])
+    v = torch.cat([a, b]).numpy()
+    d = np.abs(tiled.numpy().astype(np.float64) - want.numpy()).reshape(60, -1)
+    # the pair's own reference adds the two lists' sums once more: one rounding
+    bound = _reorder_bound(ids, 60, v) + EPS * np.abs(want.numpy()).reshape(60, -1)
+    assert (d <= bound).all()
+    with pytest.raises(ValueError, match="segment_sum_pair"):
+        ss.segment_sum(plan, torch.cat([a, b]))
+    with pytest.raises(ValueError, match="segment_plan_pair"):
+        ss.segment_sum_pair(ss.segment_plan(torch.as_tensor(ei), 60), a, b)
+    with pytest.raises(ValueError, match="rows"):
+        ss.segment_sum_pair(plan, a[1:], b)
+
+
+def test_pose_graph_pair_matches_two_plans(monkeypatch):
+    """``pose_graph_optimize`` on the CPU with the pair plan bitwise equal to
+    the form it replaces (two plans, two sums and an add per product), on a
+    seeded ring with chords."""
+    rng = np.random.default_rng(5)
+    C = 20
+    S = torch.zeros(C, 8)
+    S[:, 3] = S[:, 7] = 1.0
+    S[:, 4:7] = torch.as_tensor(rng.normal(size=(C, 3)).astype(np.float32))
+    ei = torch.as_tensor(np.r_[np.arange(C), rng.integers(0, C, 12)].astype(np.int32))
+    ej = torch.as_tensor(np.r_[(np.arange(C) + 1) % C, rng.integers(0, C, 12)].astype(np.int32))
+    M = tgeo.sim3_compose(S[ei.long()], tgeo.sim3_inv(S[ej.long()]))
+    S0 = S.clone()
+    S0[:, 4:7] += torch.as_tensor(rng.normal(scale=0.05, size=(C, 3)).astype(np.float32))
+    fixed = torch.zeros(C, dtype=torch.bool)
+    fixed[0] = True
+    E = ei.shape[0]
+    prob = tba.PoseGraphProblem(
+        S_iw=S0, node_valid=torch.ones(C, dtype=torch.bool), node_fixed=fixed, edge_i=ei,
+        edge_j=ej, edge_Sij=M, edge_valid=torch.ones(E, dtype=torch.bool),
+        edge_weight=torch.as_tensor(rng.uniform(0.5, 2.0, E).astype(np.float32)))
+    got = tba.pose_graph_optimize(prob, iters=4, cg_iters=10)
+
+    def two_plans(plan, a, b):
+        i = ss.segment_plan(plan.idx[:plan.split], plan.n)
+        j = ss.segment_plan(plan.idx[plan.split:], plan.n)
+        return tba._seg_add(i, a) + tba._seg_add(j, b)
+
+    monkeypatch.setattr(tba, "_seg_add_pair", two_plans)
+    want = tba.pose_graph_optimize(prob, iters=4, cg_iters=10)
+    assert not torch.equal(got, S0) and torch.equal(got, want)
+
+
+def test_copy_width_from_alignment():
+    """The wrapper's copy size: 16 bytes where the width and every base
+    pointer allow, else 8, else 4; a pointer off 4-byte alignment raises."""
+    assert ss._copy_floats(36, 256, 1024) == 4
+    assert ss._copy_floats(36, 256, 1032) == 2
+    assert ss._copy_floats(18, 256, 512) == 2
+    assert ss._copy_floats(7, 256, 512) == 1
+    assert ss._copy_floats(36, 260, 512) == 1
+    with pytest.raises(ValueError, match="aligned"):
+        ss._copy_floats(36, 258, 512)
 
 
 @pytest.mark.parametrize("width", [1, 3, 6, 7, 9, 36, 49])
