@@ -28,6 +28,7 @@ orbslamm_tpu/models/system.py).
 from __future__ import annotations
 
 import enum
+import functools
 import math
 import weakref
 import zlib
@@ -477,6 +478,21 @@ class MapContext:
         return s
 
 
+def _frame_stage(step):
+    """A ``frame`` stage over one call of a per-frame entry, its attributes
+    taken at the end from what the host holds: the record's ``frame_id``
+    and ``state``, and ``kf``, whether the frame inserted a keyframe."""
+
+    @functools.wraps(step)
+    def framed(self, *args, **kw):
+        self._frame_kf = False
+        with stage("frame") as attrs:
+            rec = step(self, *args, **kw)
+            attrs.update(frame_id=rec.frame_id, state=rec.state, kf=self._frame_kf)
+        return rec
+    return framed
+
+
 class RobotTracker:
     """Per-robot frame-to-frame tracking state (Tracking.cc analog)."""
 
@@ -504,6 +520,7 @@ class RobotTracker:
         self.generator.manual_seed(zlib.crc32(name.encode()))
         self._reset_tracking()
         self.frame_id = -1
+        self._frame_kf = False  # the frame in progress inserted a keyframe
         self.on_keyframe = None  # callback(tracker, slot): the MultiMapper's hook
         # set by MultiMapper.set_multi_mapping(False): a loss relocalizes
         # even though a MultiMapper owns this tracker
@@ -843,6 +860,7 @@ class RobotTracker:
         if need and not self.localization_only and mc.n_kf < cfg.capacity.max_keyframes - 1:
             slot = mc.insert_keyframe(self.T_cw, self.K, feats, r2.feat_lm, self.frame_id,
                                       timestamp)
+            self._frame_kf = True
             self._last_ref = (slot, np.eye(4))
             self.last_kf_inliers = n2
             self.peak_inliers_since_kf = n2
@@ -883,6 +901,7 @@ class RobotTracker:
         if bool(s.new_kf):
             slot = int(s.kf_slot)
             mc.n_kf = slot + 1
+            self._frame_kf = True
             tr = get_tracer()
             tr.incr("keyframes_inserted")
             tr.event("keyframe", map_id=mc.map_id, slot=slot, frame_id=self.frame_id,
@@ -1046,6 +1065,7 @@ class RobotTracker:
         return recs
 
     # -- stereo / RGB-D (System::TrackStereo / TrackRGBD) --------------------
+    @_frame_stage
     def process_frame_stereo(self, image_left, image_right, timestamp: float) -> FrameRecord:
         imgL = torch.as_tensor(image_left, device=self.device)
         imgR = torch.as_tensor(image_right, device=self.device)
@@ -1056,6 +1076,7 @@ class RobotTracker:
             lambda f: st.with_stereo(f, featsR, self.cfg.camera, self.cfg.orb.scale_factor,
                                      img_left=imgL, img_right=imgR))
 
+    @_frame_stage
     def process_frame_rgbd(self, image, depth_image, timestamp: float) -> FrameRecord:
         depth = torch.as_tensor(depth_image, device=self.device)
         return self._process_depth_frame(
@@ -1106,6 +1127,7 @@ class RobotTracker:
         return rec
 
     # -- public API --------------------------------------------------------
+    @_frame_stage
     def process_frame(self, image, timestamp: float) -> FrameRecord:
         self._vocabulary_gate()
         self.frame_id += 1

@@ -92,7 +92,8 @@ def pose_optimize(T_init, K, pts_w, uv_obs, valid, sigma2=1.0, rounds: int = 4,
     (EdgeStereoSE3ProjectXYZOnlyPose), which pins metric scale every frame;
     stereo rows are gated by the 3-DoF threshold.
     """
-    with stage("ba.pose_optimize"):
+    with stage("ba.pose_optimize", B=T_init.shape[0] if T_init.ndim == 3 else 1,
+               N=pts_w.shape[0]):
         return _pose_optimize(T_init, K, pts_w, uv_obs, valid, sigma2, rounds, iters,
                               chi2_th, ur_obs, bf)
 

@@ -1,44 +1,53 @@
-"""Tracing: named stages for the profiler, and the Tracer's report.
+"""Tracing: named stages for the profiler, the Tracer's report, and one
+span log on the profiler's clock.
 
-Two layers, which answer different questions and so both stay:
-
-* ``stage(name)`` marks a stage of the device path: always a
+* ``stage(name, **attrs)`` marks a stage of the device path: always a
   ``torch.profiler`` range, and while a ``StageTimer`` is active also a
   synchronized wall clock. The timer drains the device at each stage's
   start and end, so a stage's time holds the device work it launched;
   nested stages (``ba.pose_optimize`` inside ``track.local_map``) each
   report their inclusive time. With no timer active a stage costs one
-  profiler range. A timer made with ``prefixes`` times only the stages
-  whose first dotted part is one of them (``"loop"`` takes
-  ``loop.verify``), so the rest of the path runs without the extra drains.
-* ``Tracer`` (port of orbslamm_tpu/utils/trace.py): span timing on the
-  host's clock (``with tracer.span("track")``; per-span count, total,
-  median, p90, p99 and max), a bounded structured event log (the
-  reference's state-transition prints), counters and gauges, and a
-  Chrome-trace export. The process-wide ``get_tracer()`` is the one the
-  sessions, the MultiMapper, the bank and the bridge write to, under the
-  JAX package's span, event and counter names, so a run of either package
-  writes a ``trace_report.json`` with the same keys (``driver.run_robots``
-  saves it). A span never synchronizes the device: it is the host's wall
-  time, launches included, device work only where the host waited on it.
+  profiler range and one entry of the span log. A timer made with
+  ``prefixes`` times only the stages whose first dotted part is one of
+  them (``"loop"`` takes ``loop.verify``), so the rest of the path runs
+  without the extra drains.
+* ``Tracer`` (port of orbslamm_tpu/utils/trace.py): span timing
+  (``with tracer.span("track")``; per-span count, total, median, p90, p99
+  and max), a bounded structured event log (the reference's
+  state-transition prints), counters and gauges. The process-wide
+  ``get_tracer()`` is the one the sessions, the MultiMapper, the bank and
+  the bridge write to, under the JAX package's span, event and counter
+  names, so a run of either package writes a ``trace_report.json`` with
+  the same keys (``driver.run_robots`` saves it). A span is also a
+  profiler range of its own name. Neither a span nor a stage
+  synchronizes the device: its time is the host's, launches included,
+  device work only where the host waited on it.
+* The span log: while the process Tracer is enabled, every ``stage`` and
+  every ``Tracer.span`` leaves one ``Span`` entry (name, start and end in
+  ``time.time_ns()``, the clock ``torch.profiler`` stamps its events with,
+  the enclosing entry on the same thread, the thread, attributes), so the
+  log joins the device trace without the profiler's host activity. It
+  keeps the newest ``max_spans`` entries and counts the ones it let go
+  (``dropped``). Both context managers yield their attribute dict: keys
+  set inside become the entry's attributes at its end.
+  ``save_chrome_trace`` writes the log for Perfetto. ``stage_summary``
+  and ``trace_report.json`` hold the Tracer's spans alone.
 
 Where a stage and a span wrap the same region they nest (``merge`` around
 ``merge.apply``, ``loop_correct`` around ``loop.correct``).
-``torch_profile(logdir)`` is the counterpart of the JAX package's
-``jax_profile``: a ``torch.profiler`` session around a region, its Chrome
-trace written into ``logdir``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import threading
 import time
 from collections import defaultdict, deque
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Iterator
+from typing import Iterator, NamedTuple
 
 import numpy as np
 import torch
@@ -75,20 +84,38 @@ class StageTimer:
 
 
 @contextlib.contextmanager
-def stage(name: str):
+def stage(name: str, **attrs) -> Iterator[dict]:
     timer = _timer
+    tr = _default
     with record_function(name):
-        if timer is None or not timer.times(name):
-            yield
-            return
-        timer.sync()
-        t0 = time.perf_counter()
+        tok = tr._enter() if tr.enabled else None
         try:
-            yield
+            if timer is None or not timer.times(name):
+                yield attrs
+            else:
+                timer.sync()
+                t0 = time.perf_counter()
+                try:
+                    yield attrs
+                finally:
+                    timer.sync()
+                    timer.seconds[name] += time.perf_counter() - t0
+                    timer.calls[name] += 1
         finally:
-            timer.sync()
-            timer.seconds[name] += time.perf_counter() - t0
-            timer.calls[name] += 1
+            if tok is not None:
+                tr._exit(name, tok, attrs)
+
+
+class Span(NamedTuple):
+    """One entry of the span log; times in ns of ``time.time_ns()``."""
+
+    name: str
+    start_ns: int
+    end_ns: int
+    id: int  # entries are numbered in the order they open
+    parent: int  # the id of the entry open around it on its thread, -1 for none
+    thread: int  # threading.get_ident()
+    attrs: dict
 
 
 @dataclass
@@ -116,41 +143,62 @@ class SpanStats:
 
 
 class Tracer:
-    """Span timing, structured events and counters. Thread-safe; a disabled
-    tracer records nothing (one branch per call)."""
+    """Span timing, the span log, structured events and counters.
+    Thread-safe; a disabled tracer records nothing (one branch per call)."""
 
-    def __init__(self, enabled: bool = True, max_events: int = 10000):
+    def __init__(self, enabled: bool = True, max_events: int = 10000,
+                 max_spans: int = 1 << 16):
         self.enabled = enabled
         self._lock = threading.Lock()
         self._stats: dict[str, SpanStats] = defaultdict(SpanStats)
         self._events: deque = deque(maxlen=max_events)
         self._counters: dict[str, float] = defaultdict(float)
         self._gauges: dict[str, float] = {}
-        self._trace_events: list[dict] = []  # Chrome trace-event format
+        self._log: deque = deque(maxlen=max_spans)
+        self.dropped = 0  # entries the log let go since the last reset
+        self._ids = itertools.count()
+        self._local = threading.local()  # .stack: the ids open on this thread
         self._t0 = time.perf_counter()
-        self.keep_chrome_trace = False
 
     # -- spans ------------------------------------------------------------
     @contextlib.contextmanager
-    def span(self, name: str, **attrs) -> Iterator[None]:
+    def span(self, name: str, **attrs) -> Iterator[dict]:
         if not self.enabled:
-            yield
+            yield attrs
             return
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            t1 = time.perf_counter()
-            with self._lock:
-                self._stats[name].add(t1 - t0)
-                if self.keep_chrome_trace:
-                    self._trace_events.append({
-                        "name": name, "ph": "X", "pid": 0,
-                        "tid": threading.get_ident() % 1000,
-                        "ts": (t0 - self._t0) * 1e6,
-                        "dur": (t1 - t0) * 1e6,
-                        "args": attrs,
-                    })
+        with record_function(name):
+            tok = self._enter()
+            try:
+                yield attrs
+            finally:
+                self._exit(name, tok, attrs, stats=True)
+
+    def _enter(self) -> tuple[int, int, int]:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        sid = next(self._ids)
+        parent = stack[-1] if stack else -1
+        stack.append(sid)
+        return sid, parent, time.time_ns()
+
+    def _exit(self, name: str, tok: tuple[int, int, int], attrs: dict,
+              stats: bool = False) -> None:
+        end = time.time_ns()
+        sid, parent, start = tok
+        self._local.stack.pop()
+        entry = Span(name, start, end, sid, parent, threading.get_ident(), attrs)
+        with self._lock:
+            if len(self._log) == self._log.maxlen:
+                self.dropped += 1
+            self._log.append(entry)
+            if stats:
+                self._stats[name].add((end - start) / 1e9)
+
+    def spans(self) -> list[Span]:
+        """The span log, oldest end first."""
+        with self._lock:
+            return list(self._log)
 
     # -- events (the state-transition log) ---------------------------------
     def event(self, kind: str, **fields) -> None:
@@ -192,9 +240,11 @@ class Tracer:
         Path(path).write_text(json.dumps(self.report(), indent=1))
 
     def save_chrome_trace(self, path: str | Path) -> None:
-        """Write the kept spans as Chrome trace-event JSON (Perfetto)."""
-        with self._lock:
-            evs = list(self._trace_events)
+        """Write the span log, spans and stages, as Chrome trace-event JSON
+        (Perfetto nests each thread's entries by time): ``ts`` and ``dur`` in
+        us on the profiler's clock, the attributes as ``args``."""
+        evs = [{"name": s.name, "ph": "X", "pid": 0, "tid": s.thread, "ts": s.start_ns / 1e3,
+                "dur": (s.end_ns - s.start_ns) / 1e3, "args": s.attrs} for s in self.spans()]
         Path(path).write_text(json.dumps({"traceEvents": evs}))
 
     def save_events(self, path: str | Path) -> None:
@@ -206,7 +256,8 @@ class Tracer:
             self._events.clear()
             self._counters.clear()
             self._gauges.clear()
-            self._trace_events.clear()
+            self._log.clear()
+            self.dropped = 0
             self._t0 = time.perf_counter()
 
 
@@ -216,20 +267,3 @@ _default = Tracer(enabled=True)
 def get_tracer() -> Tracer:
     return _default
 
-
-@contextlib.contextmanager
-def torch_profile(logdir: str | Path) -> Iterator[torch.profiler.profile]:
-    """A ``torch.profiler`` session around a region (host operations, and
-    the card's kernels when CUDA is available); its Chrome trace goes to
-    ``logdir/trace.json``. The Tracer covers the host's stage timing, this
-    covers what runs on the device."""
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    out = Path(logdir)
-    out.mkdir(parents=True, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(str(out / "trace.json"))

@@ -2,14 +2,18 @@
 package's (orbslamm_tpu/utils/trace.py): tests/test_trace.py's cases on the
 port's, one sequence of calls on both giving equal reports and events, the
 port's call sites writing the JAX package's names, and a short driver run
-on the CPU populating the report."""
+on the CPU populating the report. Then the port's span log: its entries on
+the profiler's clock, their nesting, bound, attributes and Chrome trace,
+and the ``frame`` and ``ba.pose_optimize`` entries of an RGB-D session."""
 
 import json
 import threading
 import time
 
 import numpy as np
+import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from orbslamm_tpu.utils import trace as jtrace
 from orbslamm_tpu_torch.utils import trace as ttrace
@@ -64,7 +68,6 @@ def test_events_counters_gauges(tmp_path):
 
 def test_chrome_trace_export(tmp_path):
     tr = ttrace.Tracer()
-    tr.keep_chrome_trace = True
     with tr.span("jitted_step", frame=3):
         pass
     tr.save_chrome_trace(tmp_path / "t.json")
@@ -102,7 +105,8 @@ def test_thread_safety():
 def _drive(tr):
     """One sequence of calls: spans (nested, repeated), events, counters,
     gauges, a reset, then more of each."""
-    tr.keep_chrome_trace = True
+    if isinstance(tr, jtrace.Tracer):  # the port's Tracer always keeps its span log
+        tr.keep_chrome_trace = True
     with tr.span("dropped"):
         tr.event("dropped_event", x=1)
     tr.incr("dropped_counter")
@@ -143,18 +147,6 @@ def test_one_call_sequence_gives_equal_reports(tmp_path):
     assert out["port"]["counts"] == {"local_mapping": 3, "track": 3}
     assert out["port"]["counters"] == {"keyframes_inserted": 3.0, "map_merges": 2.5}
     assert len(out["port"]["events"]) == 4
-
-
-def test_torch_profile_writes_a_chrome_trace(tmp_path):
-    """``torch_profile``, the counterpart of ``jax_profile``: a profiler
-    session around a region whose Chrome trace lands in the directory."""
-    with ttrace.torch_profile(tmp_path / "prof") as prof:
-        with ttrace.stage("orb.extract"):
-            torch.ones(64, 64) @ torch.ones(64, 64)
-    assert any(e.key == "orb.extract" for e in prof.key_averages())
-    names = {e.get("name") for e in json.loads(
-        (tmp_path / "prof" / "trace.json").read_text())["traceEvents"]}
-    assert "orb.extract" in names
 
 
 def test_call_sites_write_the_jax_names():
@@ -226,3 +218,209 @@ def test_pipeline_emits_trace(tmp_path):
     assert tr.metrics()["counters"]["keyframes_inserted"] >= 1
     assert (tmp_path / "out" / "trace_report.json").exists()
     assert (tmp_path / "out" / "events.jsonl").exists()
+
+
+# -- the span log ----------------------------------------------------------
+
+def _profiled(body):
+    """Run ``body`` under a CPU profiler with the process Tracer reset;
+    returns (log entries, {name: sorted [start, end] ns of its ranges})."""
+    tr = ttrace.get_tracer()
+    tr.reset()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        body(tr)
+    ranges = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.is_user_annotation():
+            ranges.setdefault(ev.name(), []).append((ev.start_ns(), ev.start_ns() + ev.duration_ns()))
+    return tr.spans(), {k: sorted(v) for k, v in ranges.items()}
+
+
+def _stage_body(tr):
+    for i in range(20):
+        with ttrace.stage("orb.extract", i=i):
+            torch.ones(64, 64) @ torch.ones(64, 64)
+
+
+def _span_body(tr):
+    for i in range(20):
+        with tr.span("track", i=i):
+            torch.ones(64, 64) @ torch.ones(64, 64)
+
+
+def _nested_body(tr):
+    for i in range(20):
+        with tr.span("local_mapping", slot=i), ttrace.stage("mapping.fuse"):
+            with ttrace.stage("ba.pose_optimize", B=1, N=8):
+                torch.ones(64, 64) @ torch.ones(64, 64)
+
+
+@pytest.mark.parametrize("body", [_stage_body, _span_body, _nested_body],
+                         ids=["stage", "span", "nested"])
+def test_log_entries_meet_their_profiler_ranges(body):
+    """Each entry of the log is stamped on the profiler's clock: at both
+    ends within 50 us of its ``record_function`` event (a preempted host
+    may stretch one gap in ten), and never further than 5 ms."""
+    _profiled(body)  # the profiler's first ranges pay for its warm-up
+    log, ranges = _profiled(body)
+    names = {e.name for e in log}
+    assert names and len(log) == sum(len(ranges[n]) for n in names)
+    gaps = []
+    for n in names:
+        mine = sorted((e.start_ns, e.end_ns) for e in log if e.name == n)
+        for (s, e), (ps, pe) in zip(mine, ranges[n]):
+            gaps += [abs(s - ps), abs(pe - e)]
+    gaps = np.asarray(gaps) / 1e3
+    assert gaps.max() < 5000, gaps.max()
+    assert (gaps <= 50).mean() >= 0.9, np.sort(gaps)[-10:]
+
+
+def test_log_parents_follow_nesting_and_threads():
+    tr = ttrace.get_tracer()
+    tr.reset()
+    ready = threading.Barrier(2)
+
+    def work(k):
+        with tr.span("track", robot=k):
+            ready.wait()
+            with ttrace.stage("orb.extract"):
+                with ttrace.stage("matching.match_tables"):
+                    ready.wait()
+
+    threads = [threading.Thread(target=work, args=(k,)) for k in range(2)]
+    [t.start() for t in threads]
+    [t.join() for t in threads]
+    log = tr.spans()
+    assert len(log) == 6
+    by_id = {e.id: e for e in log}
+    for e in log:
+        if e.name == "track":
+            assert e.parent == -1
+        else:
+            up = by_id[e.parent]
+            assert up.thread == e.thread
+            assert up.name == {"orb.extract": "track", "matching.match_tables": "orb.extract"}[e.name]
+            assert up.start_ns <= e.start_ns <= e.end_ns <= up.end_ns
+    assert len({e.thread for e in log}) == 2
+
+
+def test_log_bound_drops_the_oldest():
+    tr = ttrace.Tracer(max_spans=4)
+    for i in range(7):
+        with tr.span("s", i=i):
+            pass
+    assert [e.attrs["i"] for e in tr.spans()] == [3, 4, 5, 6]
+    assert tr.dropped == 3
+    assert tr.stage_summary()["s"]["count"] == 7
+
+
+@pytest.mark.parametrize("how", ["disabled", "reset"])
+def test_disabled_or_reset_leaves_no_entry(how):
+    tr = ttrace.get_tracer()
+    tr.reset()
+    if how == "disabled":
+        tr.enabled = False
+    try:
+        with tr.span("track"), ttrace.stage("orb.extract") as attrs:
+            attrs["n"] = 1
+    finally:
+        tr.enabled = True
+    if how == "reset":
+        assert len(tr.spans()) == 2
+        tr.dropped = 5
+        tr.reset()
+    assert tr.spans() == [] and tr.dropped == 0
+
+
+@pytest.mark.parametrize("kind", ["stage", "span"])
+def test_attributes_set_inside_are_kept(kind):
+    tr = ttrace.get_tracer()
+    tr.reset()
+    cm = ttrace.stage("frame", frame_id=3) if kind == "stage" else tr.span("track", robot="r0")
+    with cm as attrs:
+        attrs["kf"] = True
+    (e,) = tr.spans()
+    assert e.attrs == ({"frame_id": 3, "kf": True} if kind == "stage"
+                       else {"robot": "r0", "kf": True})
+
+
+def test_chrome_trace_holds_the_nested_stages(tmp_path):
+    tr = ttrace.get_tracer()
+    tr.reset()
+    with tr.span("local_mapping", slot=2):
+        with ttrace.stage("mapping.triangulate"):
+            with ttrace.stage("matching.match_tables"):
+                pass
+        with ttrace.stage("mapping.fuse"):
+            pass
+    tr.save_chrome_trace(tmp_path / "t.json")
+    evs = {e["name"]: e for e in json.loads((tmp_path / "t.json").read_text())["traceEvents"]}
+    assert set(evs) == {"local_mapping", "mapping.triangulate", "matching.match_tables",
+                        "mapping.fuse"}
+    assert evs["local_mapping"]["args"] == {"slot": 2}
+    assert len({e["tid"] for e in evs.values()}) == 1 and all(e["ph"] == "X" for e in evs.values())
+
+    def inside(a, b):  # us stamps of ns: allow their rounding
+        return (evs[b]["ts"] - 1e-3 <= evs[a]["ts"]
+                and evs[a]["ts"] + evs[a]["dur"] <= evs[b]["ts"] + evs[b]["dur"] + 1e-3)
+    assert inside("mapping.triangulate", "local_mapping")
+    assert inside("matching.match_tables", "mapping.triangulate")
+    assert inside("mapping.fuse", "local_mapping")
+    assert evs["mapping.fuse"]["ts"] >= evs["mapping.triangulate"]["ts"] + evs["mapping.triangulate"]["dur"] - 1e-3
+
+
+# tests/test_stereo_rgbd.py's camera and configuration
+RGBD_CAM = CameraConfig(width=320, height=240, fx=260, fy=260, cx=160, cy=120, fps=30,
+                        bf=130.0, th_depth=60.0, depth_map_factor=1.0)
+RGBD_CFG = SlamConfig(
+    camera=RGBD_CAM,
+    orb=OrbConfig(n_features=400, max_keypoints=1024, n_levels=4),
+    capacity=CapacityConfig(max_keyframes=64, max_landmarks=4096),
+    tracking=TrackingConfig(pixel_noise=1.2, min_matches_init=60, init_min_triangulated=30,
+                            init_min_parallax_deg=0.4),
+)
+
+
+def test_rgbd_session_logs_frames_and_pose_solves(monkeypatch):
+    """A short RGB-D session: one ``frame`` entry a frame, consecutive
+    ``frame_id``s and the record's state, ``kf`` on exactly the frames
+    that raised ``keyframes_inserted``, and one ``ba.pose_optimize`` entry
+    a call with ``B`` and ``N`` its arguments' shapes."""
+    from orbslamm_tpu_torch.io.synthetic import make_sequence
+    from orbslamm_tpu_torch.models.system import RGBDSession
+    from orbslamm_tpu_torch.ops import ba
+
+    seq = make_sequence(n_frames=12, n_points=900, cam=RGBD_CAM, seed=7, motion="forward",
+                        with_depth=True)
+    shapes = []
+    solve = ba.pose_optimize
+
+    def counted(T_init, K, pts_w, *args, **kw):
+        shapes.append((T_init.shape[0] if T_init.ndim == 3 else 1, pts_w.shape[0]))
+        return solve(T_init, K, pts_w, *args, **kw)
+
+    monkeypatch.setattr(ba, "pose_optimize", counted)
+    tr = ttrace.get_tracer()
+    tr.reset()
+    sess = RGBDSession(RGBD_CFG, device="cpu")
+    recs, kf = [], []
+    for i in range(len(seq.images)):
+        before = tr.metrics()["counters"].get("keyframes_inserted", 0)
+        recs.append(sess.process_frame(seq.images[i], seq.depths[i], float(seq.timestamps[i])))
+        kf.append(tr.metrics()["counters"].get("keyframes_inserted", 0) > before)
+    frames = [e for e in tr.spans() if e.name == "frame"]
+    assert [e.attrs["frame_id"] for e in frames] == list(range(len(seq.images)))
+    assert [e.attrs["state"] for e in frames] == [r.state for r in recs]
+    assert [e.attrs["kf"] for e in frames] == kf and any(kf)
+    assert all(e.parent == -1 for e in frames)
+    solves = [e for e in tr.spans() if e.name == "ba.pose_optimize"]
+    assert shapes and {b for b, _ in shapes} == {1, 2}
+    assert [(e.attrs["B"], e.attrs["N"]) for e in solves] == shapes
+    frame_ids = {e.id for e in frames}
+    by_id = {e.id: e for e in tr.spans()}
+
+    def top(e):
+        while e.parent in by_id:
+            e = by_id[e.parent]
+        return e.id
+    assert all(top(e) in frame_ids for e in solves)
