@@ -21,17 +21,27 @@ CPU ``index_add_`` in edge order. Stereo
 and RGB-D observations add the reference's third residual row
 ``u - bf/z - u_r`` (EdgeStereoSE3Project*) with the 3-DoF chi2 gate; a
 monocular problem (``ur_obs``/``obs_ur`` None) runs the 2-row code alone.
+
+On a CUDA tensor the motion-only BA (``pose_optimize``) replays a CUDA graph
+of its fixed 4 x 10 LM op train: one graph per input signature (shapes,
+dtypes, whether ``ur_obs`` is given and ``sigma2`` a scalar, and the scalar
+arguments), captured at that signature's first call on its device and
+stream, so a call costs a few copies and one graph launch instead of about
+10,000 kernel launches. The graph runs the eager call's kernels in the
+eager call's order. On the CPU every call is eager.
 """
 
 from __future__ import annotations
 
+import threading
+from collections import OrderedDict
 from typing import NamedTuple
 
 import torch
 
 from orbslamm_tpu_torch.ops import geometry as geo
 from orbslamm_tpu_torch.ops.cuda import segsum as seg
-from orbslamm_tpu_torch.utils.trace import stage
+from orbslamm_tpu_torch.utils.trace import get_tracer, stage
 
 CHI2_MONO = 5.991  # 2-DoF 95% (reference Optimizer.cc chi2Mono)
 CHI2_STEREO = 7.815  # 3-DoF 95% (reference Optimizer.cc chi2Stereo)
@@ -92,10 +102,14 @@ def pose_optimize(T_init, K, pts_w, uv_obs, valid, sigma2=1.0, rounds: int = 4,
     (EdgeStereoSE3ProjectXYZOnlyPose), which pins metric scale every frame;
     stereo rows are gated by the 3-DoF threshold.
     """
+    args = (T_init, K, pts_w, uv_obs, valid, sigma2, rounds, iters, chi2_th, ur_obs, bf)
     with stage("ba.pose_optimize", B=T_init.shape[0] if T_init.ndim == 3 else 1,
-               N=pts_w.shape[0]):
-        return _pose_optimize(T_init, K, pts_w, uv_obs, valid, sigma2, rounds, iters,
-                              chi2_th, ur_obs, bf)
+               N=pts_w.shape[0]) as attrs:
+        if T_init.is_cuda:
+            out, attrs["graph"] = _pose_graphs.run(args)
+            return out
+        attrs["graph"] = "eager"
+        return _pose_optimize(*args)
 
 
 def _pose_optimize(T_init, K, pts_w, uv_obs, valid, sigma2, rounds, iters, chi2_th,
@@ -107,9 +121,9 @@ def _pose_optimize(T_init, K, pts_w, uv_obs, valid, sigma2, rounds, iters, chi2_
     sigma2 = torch.as_tensor(sigma2, dtype=torch.float32, device=dev).expand(valid.shape)
     inv_s2 = 1.0 / sigma2
     has_ur = None if ur_obs is None else ur_obs >= 0.0
-    if ur_obs is not None:
-        chi2_th = torch.where(has_ur, torch.as_tensor(CHI2_STEREO, device=dev),
-                              torch.as_tensor(chi2_th, dtype=torch.float32, device=dev))
+    if ur_obs is not None:  # fills, not host copies: a CUDA graph captures them
+        chi2_th = torch.where(has_ur, torch.full((), CHI2_STEREO, device=dev),
+                              torch.full((), chi2_th, dtype=torch.float32, device=dev))
     delta_h = torch.sqrt(chi2_th * sigma2)
     eye6 = torch.eye(6, dtype=torch.float32, device=dev)
 
@@ -174,6 +188,102 @@ def _pose_optimize(T_init, K, pts_w, uv_obs, valid, sigma2, rounds, iters, chi2_
     if not batched:
         return PoseOptResult(T_cw=T[0], inliers=mask[0], n_inliers=n_inl[0])
     return PoseOptResult(T_cw=T, inliers=mask, n_inliers=n_inl)
+
+
+def _tensor_args(args) -> tuple:
+    """A pose solve's tensor arguments (``sigma2`` may be a number and
+    ``ur_obs`` None), in the order of ``_pose_optimize``'s."""
+    T_init, K, pts_w, uv_obs, valid, sigma2, _, _, _, ur_obs, _ = args
+    return T_init, K, pts_w, uv_obs, valid, sigma2, ur_obs
+
+
+def _pose_signature(T_init, K, pts_w, uv_obs, valid, sigma2, rounds, iters, chi2_th,
+                    ur_obs, bf) -> tuple:
+    """What a pose solve's CUDA graph is specialised to: each tensor
+    argument's shape and dtype (None for an absent ``ur_obs``; "scalar" for a
+    number ``sigma2``, which the graph reads from a buffer), and the numbers
+    its kernels take as arguments (``rounds``, ``iters``, ``chi2_th``, ``bf``)."""
+    def sig(x):
+        if x is None:
+            return None
+        if not torch.is_tensor(x):
+            return "scalar"
+        return tuple(x.shape), x.dtype
+    return (tuple(sig(x) for x in (T_init, K, pts_w, uv_obs, valid, sigma2, ur_obs))
+            + (int(rounds), int(iters), float(chi2_th), float(bf)))
+
+
+class _PoseGraph:
+    """One signature's graph: static inputs on the device, the captured
+    solve, and the static outputs that each replay overwrites."""
+
+    def __init__(self, args, dev):
+        self.inputs = [None if x is None else
+                       torch.empty((), dtype=torch.float32, device=dev) if not torch.is_tensor(x)
+                       else torch.empty(x.shape, dtype=x.dtype, device=dev)
+                       for x in _tensor_args(args)]
+        self.load(args)
+        T, K, pts_w, uv_obs, valid, sigma2, ur_obs = self.inputs
+        rounds, iters, chi2_th, bf = args[6], args[7], args[8], args[10]
+        static = (T, K, pts_w, uv_obs, valid, sigma2, rounds, iters, chi2_th, ur_obs, bf)
+        side = torch.cuda.Stream(dev)  # warm-up off the caller's stream, as capture needs
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            _pose_optimize(*static)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        # thread-local: another thread's (the viewer's) calls do not break the capture
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            self.outputs = _pose_optimize(*static)
+
+    def load(self, args):
+        for buf, x in zip(self.inputs, _tensor_args(args)):
+            if torch.is_tensor(x):
+                buf.copy_(x)
+            elif x is not None:  # a number sigma2
+                buf.fill_(x)
+
+    def run(self, args) -> PoseOptResult:
+        self.load(args)
+        self.graph.replay()
+        # clones: the next replay overwrites the outputs, and callers keep the pose
+        return PoseOptResult(*(x.clone() for x in self.outputs))
+
+
+class _PoseGraphs:
+    """The pose solve's CUDA graphs, least recently used first, at most
+    ``size``: one per (device, stream, signature), captured at its first
+    call. A capture that fails raises; there is no eager fallback on the card.
+    One lock serialises capture, copy-in, replay and the outputs' clones, so
+    callers on several threads share a graph one replay at a time."""
+
+    def __init__(self, size: int = 8):
+        self.size = size
+        self._lock = threading.Lock()
+        self._graphs: OrderedDict = OrderedDict()
+
+    def run(self, args) -> tuple[PoseOptResult, str]:
+        """(the solve's result, "capture" or "replay")."""
+        dev = args[0].device
+        key = (dev, torch.cuda.current_stream(dev).cuda_stream) + _pose_signature(*args)
+        tr = get_tracer()
+        with self._lock:
+            g = self._graphs.get(key)
+            if g is None:
+                g = _PoseGraph(args, dev)
+                self._graphs[key] = g
+                while len(self._graphs) > self.size:
+                    self._graphs.popitem(last=False)
+                mode = "capture"
+                tr.incr("ba.pose_graph_captures")
+            else:
+                self._graphs.move_to_end(key)
+                mode = "replay"
+                tr.incr("ba.pose_graph_replays")
+            return g.run(args), mode
+
+
+_pose_graphs = _PoseGraphs()
 
 
 # ---------------------------------------------------------------------------

@@ -127,8 +127,7 @@ def rt_to_T(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     R = R.expand(*batch, 3, 3)
     t = t.expand(*batch, 3)
     top = torch.cat([R, t[..., None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype, device=R.device)
-    bottom = bottom.expand(*batch, 1, 4)
+    bottom = _eye(4, R)[3:].expand(*batch, 1, 4)  # a fill on R's device, no host copy
     return torch.cat([top, bottom], dim=-2)
 
 

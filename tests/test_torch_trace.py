@@ -416,6 +416,9 @@ def test_rgbd_session_logs_frames_and_pose_solves(monkeypatch):
     solves = [e for e in tr.spans() if e.name == "ba.pose_optimize"]
     assert shapes and {b for b, _ in shapes} == {1, 2}
     assert [(e.attrs["B"], e.attrs["N"]) for e in solves] == shapes
+    # the CPU never captures a CUDA graph: every solve eager, both counters unset
+    assert all(e.attrs["graph"] == "eager" for e in solves) and len(ba._pose_graphs._graphs) == 0
+    assert not {"ba.pose_graph_captures", "ba.pose_graph_replays"} & set(tr.metrics()["counters"])
     frame_ids = {e.id for e in frames}
     by_id = {e.id: e for e in tr.spans()}
 
