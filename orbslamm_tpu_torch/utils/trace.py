@@ -18,7 +18,9 @@ span log on the profiler's clock.
   ``get_tracer()`` is the one the sessions, the MultiMapper, the bank and
   the bridge write to, under the JAX package's span, event and counter
   names, so a run of either package writes a ``trace_report.json`` with
-  the same keys (``driver.run_robots`` saves it). A span is also a
+  the same keys (``driver.run_robots`` saves it); the port's own
+  ``stereo.*`` counters are summed on the device (``add_device_counts``)
+  and read to the host only with ``metrics`` and ``report``. A span is also a
   profiler range of its own name. Neither a span nor a stage
   synchronizes the device: its time is the host's, launches included,
   device work only where the host waited on it.
@@ -153,6 +155,8 @@ class Tracer:
         self._stats: dict[str, SpanStats] = defaultdict(SpanStats)
         self._events: deque = deque(maxlen=max_events)
         self._counters: dict[str, float] = defaultdict(float)
+        # (names, device) -> a device tensor of sums not yet read
+        self._device_counts: dict[tuple, torch.Tensor] = {}
         self._gauges: dict[str, float] = {}
         self._log: deque = deque(maxlen=max_spans)
         self.dropped = 0  # entries the log let go since the last reset
@@ -214,6 +218,28 @@ class Tracer:
             with self._lock:
                 self._counters[name] += by
 
+    def add_device_counts(self, names: tuple[str, ...], counts: torch.Tensor) -> None:
+        """Add ``counts`` [len(names)], a tensor on any device, to the
+        counters ``names`` without reading it: the sums stay on the device
+        until ``metrics`` or ``report`` reads them."""
+        if not self.enabled:
+            return
+        with self._lock:
+            key = (tuple(names), counts.device)
+            acc = self._device_counts.get(key)
+            if acc is None:
+                self._device_counts[key] = counts.detach().to(torch.int64).clone()
+            else:
+                acc.add_(counts)
+
+    def _read_device_counts(self) -> None:
+        """Fold the device sums into the counters (under the lock): the one
+        place they are read to the host."""
+        for (names, _), acc in self._device_counts.items():
+            for name, v in zip(names, acc.tolist()):
+                self._counters[name] += v
+        self._device_counts.clear()
+
     def gauge(self, name: str, value: float) -> None:
         if self.enabled:
             with self._lock:
@@ -226,6 +252,7 @@ class Tracer:
 
     def metrics(self) -> dict:
         with self._lock:
+            self._read_device_counts()
             return {"counters": dict(self._counters), "gauges": dict(self._gauges)}
 
     def events(self, kind: str | None = None) -> list[dict]:
@@ -255,6 +282,7 @@ class Tracer:
             self._stats.clear()
             self._events.clear()
             self._counters.clear()
+            self._device_counts.clear()
             self._gauges.clear()
             self._log.clear()
             self.dropped = 0

@@ -5,10 +5,9 @@ th_depth 60), on features the JAX extractor takes from a rendered frame.
 Tolerances:
   * match_stereo: the ``u_right >= 0`` masks equal; u_right and depth within
     1e-5 relative;
-  * refine_disparity: the refined u_right agrees within 1e-4 px on >= 99 %
-    of the matched rows (the SAD sums 121 float32 terms in another order,
-    which can move the argmin on a near-tie; a moved argmin moves the
-    vertex by about a pixel);
+  * the refinement and filter after match_stereo follow ORB-SLAM2, not the
+    JAX package: tests/test_torch_stereo_orbslam2.py holds them to
+    benchmark/reference/stereo.py;
   * depth_from_depthmap / with_depthmap: masks exact, values within 1e-5
     relative, with depth map factors 1 and 5208;
   * pose_optimize with mixed monocular and stereo rows: inlier masks equal,
@@ -122,32 +121,6 @@ def test_match_stereo_runner_up_and_empty_rows():
     assert np.array_equal(ut, uj)
     _close(dt, dj, 1e-5)
     assert uj[6] == -1 and (uj[:40] >= 0).sum() >= 35 and (uj[40:] == -1).all()
-
-
-def test_refine_disparity_and_with_stereo(frame):
-    u0, _ = jst.match_stereo(frame["fL"], frame["fR"], bf=CAM.bf,
-                             scale_factor=ORB.scale_factor, min_z=CAM.baseline)
-    args_j = (jnp.asarray(frame["imgL"]), jnp.asarray(frame["imgR"]), frame["fL"].xy_raw, u0)
-    rj = np.asarray(jst.refine_disparity(*args_j))
-    rt = tst.refine_disparity(torch.as_tensor(frame["imgL"]), torch.as_tensor(frame["imgR"]),
-                              torch.as_tensor(np.array(frame["fL"].xy_raw)),
-                              torch.as_tensor(np.array(u0))).numpy()
-    has = np.asarray(u0) >= 0
-    same = np.abs(rt - rj) <= 1e-4
-    assert same[has].mean() >= 0.99, same[has].mean()
-    assert np.array_equal(rt[~has], rj[~has])
-    # the whole association with refinement
-    sj = jst.with_stereo(frame["fL"], frame["fR"], CAM, ORB.scale_factor,
-                         img_left=jnp.asarray(frame["imgL"]), img_right=jnp.asarray(frame["imgR"]))
-    stt = tst.with_stereo(_feats_t(frame["fL"]), _feats_t(frame["fR"]), CAM, ORB.scale_factor,
-                          img_left=torch.as_tensor(frame["imgL"]),
-                          img_right=torch.as_tensor(frame["imgR"]))
-    uj, ut = np.asarray(sj.u_right), stt.u_right.numpy()
-    dj, dt = np.asarray(sj.depth), stt.depth.numpy()
-    assert np.array_equal(ut >= 0, uj >= 0) and np.array_equal(dt > 0, dj > 0)
-    agree = np.abs(ut - uj) <= 1e-4
-    assert agree[uj >= 0].mean() >= 0.99
-    _close(dt[agree], dj[agree], 1e-5)
 
 
 @pytest.mark.parametrize("factor", [1.0, 5208.0])

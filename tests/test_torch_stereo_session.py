@@ -18,7 +18,9 @@ Tolerances:
   * the port's own sessions: tests/test_stereo_rgbd.py's bars (stereo: at
     most 4 frames lost, SE3-aligned ATE below 0.2 m; RGB-D: at most 5
     lost, travelled distance within 15 % of ground truth, SE3 ATE below
-    0.25 m).
+    0.25 m), and the RGB-D distance bar for stereo too, which the JAX
+    package's stereo association misses (ROADMAP, the faults of the
+    reference the port does not keep).
 """
 
 import jax
@@ -140,12 +142,20 @@ def _gt(seq, ts):
     return seq.poses_cw[[int(round(t * CAM.fps)) for t in ts]]
 
 
-def test_stereo_session_tracks_with_metric_scale():
+@pytest.fixture(scope="module")
+def stereo_run():
+    """The port's own stereo session over the stereo sequence: (session,
+    frame records, sequence)."""
     seq = _sequence("stereo")
     sess = StereoSession(CFG, device="cpu")
-    assert sess.cfg.sensor == "stereo"
     recs = [sess.process_frame(seq.images[i], seq.images_right[i], float(seq.timestamps[i]))
             for i in range(len(seq.images))]
+    return sess, recs, seq
+
+
+def test_stereo_session_tracks_with_metric_scale(stereo_run):
+    sess, recs, seq = stereo_run
+    assert sess.cfg.sensor == "stereo"
     assert recs[0].state == "OK"  # one stereo frame initializes
     assert sum(r.state == "LOST" for r in recs) <= 4
     assert sess.n_kf >= 1
@@ -154,6 +164,20 @@ def test_stereo_session_tracks_with_metric_scale():
     ate_se3 = ate_from_poses(est, _gt(seq, ts), align="se3")
     assert ate_se3 < 0.2, f"SE3 (metric) ATE {ate_se3:.3f}"
     assert (sess.map.kf_ur.numpy()[sess.map.kf_valid.numpy()] >= 0).any()
+
+
+def test_stereo_session_travels_the_metric_distance(stereo_run):
+    """ORB-SLAM2's correlation rejections and SAD filter keep the wrong
+    coarse matches out of the map: the stereo session ends within 15 % of
+    the travelled distance, the RGB-D case's bar (the JAX package's
+    association, which keeps them, ends 19 % short here)."""
+    sess, _, seq = stereo_run
+    ts, est = sess.frame_trajectory()
+    gt = _gt(seq, ts)
+    travel_est = np.linalg.norm(_center(est[-1]) - _center(est[0]))
+    travel_gt = np.linalg.norm(_center(gt[-1]) - _center(gt[0]))
+    scale_err = abs(travel_est / travel_gt - 1.0)
+    assert scale_err < 0.15, f"metric scale off by {scale_err:.1%}"
 
 
 def test_rgbd_session_metric_scale():
